@@ -1,13 +1,13 @@
-"""nvdiffrast_tpu — TPU-native differentiable rasterization primitives.
+"""nvdiffrast_tpu — differentiable rasterization primitives in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the four modular
-differentiable rendering primitives popularized by nvdiffrast
-(rasterize, interpolate, texture, antialias), re-designed for TPU:
+A from-scratch JAX implementation of the four modular differentiable
+rendering primitives popularized by nvdiffrast (rasterize,
+interpolate, texture, antialias):
 
-* no atomics / persistent threads — deterministic scan/segment-sum
-  reductions and masked dense compute instead,
-* static shapes everywhere (jit/pjit friendly),
-* multi-chip scaling via ``jax.sharding`` meshes (see
+* no atomics in coverage — one owner per pixel, deterministic
+  lexicographic depth/id merges; a binned Pallas kernel on GPUs,
+* static shapes everywhere (jit friendly),
+* multi-device scaling via ``jax.sharding`` meshes (see
   :mod:`nvdiffrast_tpu.parallel`).
 
 Public API mirrors the reference's ``nvdiffrast.torch`` surface

@@ -36,7 +36,7 @@ def render_refl(mvp, campos, pos, pos_idx, normals, res):
                                                 keepdims=True)
     reflvec = reflvec / jnp.sum(reflvec ** 2, -1, keepdims=True) ** 0.5
     posw = jnp.concatenate([pos[:, :3], jnp.ones_like(pos[:, :1])], axis=1)
-    pos_clip = (posw @ mvp.T)[None]
+    pos_clip = jnp.matmul(posw, mvp.T, precision=camera.HIGHEST)[None]
     rast_out, rast_out_db = rasterize(None, pos_clip, pos_idx, (res, res))
     refl, refld = interpolate(reflvec[None], rast_out, pos_idx,
                               rast_db=rast_out_db, diff_attrs="all")

@@ -18,7 +18,7 @@ from . import primitives
 
 
 def render(mvp, q, pos, pos_idx, col, col_idx, resolution):
-    mtx = mvp @ camera.q_to_mtx(q)
+    mtx = jnp.matmul(mvp, camera.q_to_mtx(q), precision=camera.HIGHEST)
     pos_clip = camera.transform_pos(mtx, pos)
     rast_out, _ = rasterize(None, pos_clip, pos_idx, (resolution, resolution))
     color, _ = interpolate(col[None], rast_out, col_idx)

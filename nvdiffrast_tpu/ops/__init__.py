@@ -1,1 +1,1 @@
-"""Differentiable rendering primitive ops (JAX/XLA/Pallas)."""
+"""Differentiable rendering primitive ops."""

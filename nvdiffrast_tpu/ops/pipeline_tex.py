@@ -1,253 +1,25 @@
-"""Fused textured render pipeline (TPU extension).
+"""Rasterize -> interpolate -> texture -> antialias in one call.
 
 ``render_pipeline_textured`` renders the reference's textured workload
-(earth.py / envphong.py shape: rasterize(grad_db) + interpolate(uv,
-diff_attrs='all') + texture(mip) + antialias, e.g.
-samples/torch/earth.py:44-61) with every inter-op boundary carried as
-FLAT channel-major buffers:
+(earth.py / envphong.py shape, e.g. samples/torch/earth.py:44-61) by
+composing the public ops::
 
-* no NHWC interleave of rast/rast_db and no re-flattening per op —
-  the rasterizer's flat channels feed interpolate/antialias directly;
-* no [N, 2]/[N, 4] uv/uv_da images between interpolate and texture —
-  exactly the tiny-trailing-dim layouts the TPU tile-pads by 32-64x
-  in HBM (see scatter.py's layout rule);
-* the only NHWC tensor materialized is the final antialiased image.
-
-Semantics are exactly::
-
-    rast, rast_db = rasterize(ctx, pos, tri, res, grad_db=True)
+    rast, rast_db = rasterize(ctx, pos, tri, res, grad_db=use_mip)
     uv, uv_da = interpolate(uv_attr, rast, uv_tri, rast_db,
-                            diff_attrs='all')
+                            diff_attrs='all' if use_mip else None)
     color = texture(tex, uv, uv_da=uv_da, filter_mode=..., ...)
     out = antialias(color, rast, pos, tri)
 
-with gradients to ``pos``, ``uv_attr`` and ``tex``. Unsupported
-configurations transparently fall back to that composed-op chain.
-
-Each stage keeps its own custom_vjp (rasterize_flat /
-interpolate_flat / sample_fused / antialias_flat) and the glue is
-plain differentiable JAX, so JAX AD chains the hand-written backwards
-without a pipeline-level vjp.
+with gradients to ``pos``, ``uv_attr`` and ``tex``.
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-
-def _int_zero_ct(x):
-    return np.zeros(x.shape, dtype=jax.dtypes.float0)
-
-
-# ---------------------------------------------------------------------------
-# Pipeline-level custom_vjp (2-D textures, mip filter modes): the
-# forward chains the same fused kernels as the per-op path, but the
-# backward is the slim-stream design of ops/pipeline_tex_pallas.py —
-# slim AA backward (XLA), ONE Pallas pass for the interpolate+rasterize
-# backward, and ONE fused MXU scatter for attr + raster + AA pair
-# gradients (pipeline_pallas.pipeline_grad_scatter with da4 terms).
-# The texture stage keeps its stash-based backward + apron scatter.
-# ---------------------------------------------------------------------------
-
-def _ptex_fwd_core(pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
-                   filter_mode, boundary_mode, max_mip_level, impl):
-    from . import antialias_pallas as ap
-    from . import interpolate_pallas as ip
-    from . import texture_pallas as tp
-    from .antialias import _build_tables
-    from .coord import float_to_triidx
-    from .rasterize_pallas import rasterize_fused
-    from .texture import (_mip_level_from_footprint_cols, _pack_pyramid,
-                          _static_meta, build_mip_stack)
-
-    H, W = resolution
-    B = pos.shape[0]
-    T = tri.shape[0]
-    N = B * H * W
-    C = tex.shape[-1]
-    D = tex.shape[0]
-    interpret = impl == "pallas_interpret"
-
-    levels = [tex] + build_mip_stack(tex, max_mip_level, False)
-    smeta, _ = _static_meta(levels)
-    L = len(levels)
-    flat, _ = _pack_pyramid(levels, False)
-
-    ranges = jnp.broadcast_to(jnp.array([[0, T]], jnp.int32), (B, 2))
-    outs = rasterize_fused(pos, tri, resolution, ranges, emit_db=True,
-                           flat=True, interpret=interpret)
-    u, v, zw, idf, d0, d1, d2, d3 = (a.reshape(N) for a in outs[:8])
-
-    # interpolate (uv + da) — same masking as interpolate_flat's fwd.
-    idbuf = float_to_triidx(idf) - 1
-    valid = (idbuf >= 0) & (idbuf < T)
-    a2d = uv_attr[0] if uv_attr.ndim == 3 else uv_attr
-    tbl = a2d[uv_tri].reshape(-1, 6).T
-    tbl = jnp.concatenate([tbl, jnp.zeros((6, 1), jnp.float32)], axis=1)
-    rid_u = jnp.where(valid, idbuf, T)
-    b0 = jnp.where(valid, u, 0.0)
-    b1 = jnp.where(valid, v, 0.0)
-    b2 = jnp.where(valid, 1.0 - u - v, 0.0)
-    db_cols = tuple(jnp.where(valid, c, 0.0) for c in (d0, d1, d2, d3))
-    uv_cm, da_cm = ip.interp_forward_fused(
-        tbl, rid_u, b0, b1, b2, valid, db_cols, 2, (0, 1),
-        interpret=interpret)
-
-    tex_w = jnp.float32(tex.shape[-2])
-    tex_h = jnp.float32(tex.shape[-3])
-    if D == 1:
-        tz = jnp.zeros((N,), jnp.int32)
-    else:
-        tz = jnp.arange(N, dtype=jnp.int32) // (H * W)
-    flevel = jnp.clip(
-        _mip_level_from_footprint_cols(
-            da_cm[0], da_cm[1], da_cm[2], da_cm[3], tex_w, tex_h),
-        0.0, float(L - 1))
-    out_cm, tex_saved = tp._sample_fwd(
-        flat.T, uv_cm[0], uv_cm[1], flevel, tz, smeta, L, boundary_mode,
-        filter_mode, (B, H, W), interpret)
-
-    ftable, _, _R, _T = _build_tables(pos, tri, op_table, True, H, W)
-    img, aa_res = ap.aa_forward_fused_cols(
-        out_cm, idf, zw, ftable, T, True, (B, H, W, C),
-        interpret=interpret)
-    saved = (pos, uv_attr, tex, tri, uv_tri, op_table, u, v, idf,
-             jnp.stack([d0, d1, d2, d3]), da_cm, out_cm, tex_saved,
-             aa_res)
-    return img, saved
-
-
-def _ptex_bwd_core(resolution, filter_mode, boundary_mode, max_mip_level,
-                   boost, impl, saved, dy):
-    from . import coord
-    from . import pipeline_pallas as pp
-    from . import pipeline_tex_pallas as ptp
-    from . import texture_pallas as tp
-    from .antialias import _build_tables
-    from .pipeline import _attr_table
-    from .texture import (_mip_level_from_footprint_cols, _pack_pyramid,
-                          _static_meta, build_mip_stack)
-
-    (pos, uv_attr, tex, tri, uv_tri, op_table, u, v, idf, db4, da_cm,
-     out_cm, tex_saved, aa_res) = saved
-    H, W = resolution
-    B = pos.shape[0]
-    V = pos.shape[1]
-    T = tri.shape[0]
-    N = B * H * W
-    C = tex.shape[-1]
-    interpret = impl == "pallas_interpret"
-
-    levels = [tex] + build_mip_stack(tex, max_mip_level, False)
-    smeta, _ = _static_meta(levels)
-    L = len(levels)
-    tex_w = jnp.float32(tex.shape[-2])
-    tex_h = jnp.float32(tex.shape[-3])
-
-    # 1. Slim AA backward: color cotangent + pair streams.
-    dy_cm = dy.reshape(N, C).T
-    gc, dd2, rid2, ax2 = ptp.aa_bwd_slim_cols(dy_cm, out_cm, idf, aa_res,
-                                              T, B, H, W)
-
-    # 2. Texture backward (stash-based uv/level grads + apron scatter).
-    g_flat, gu, gv, gfl, _ = tp._sample_bwd(
-        smeta, L, boundary_mode, filter_mode, (B, H, W), interpret,
-        tex_saved, gc)
-
-    def pyramid(tex_):
-        return _pack_pyramid(
-            [tex_] + build_mip_stack(tex_, max_mip_level, False), False)[0]
-
-    _, pvjp = jax.vjp(pyramid, tex)
-    (g_tex,) = pvjp(g_flat.T)
-
-    # 3. Mip-level chain: gfl -> uv_da cotangents.
-    def flv(d4):
-        return jnp.clip(
-            _mip_level_from_footprint_cols(d4[0], d4[1], d4[2], d4[3],
-                                           tex_w, tex_h),
-            0.0, float(L - 1))
-
-    _, fvjp = jax.vjp(flv, (da_cm[0], da_cm[1], da_cm[2], da_cm[3]))
-    (gda4t,) = fvjp(gfl)
-    gda4 = jnp.stack(gda4t)
-
-    # 4. Fused interpolate + rasterize backward (one Pallas pass).
-    atbl, _ = _attr_table(uv_attr, uv_tri, True, B, T)
-    _, vtbl, R, _ = _build_tables(pos, tri, op_table, True, H, W)
-    pix = jnp.arange(N, dtype=jnp.int32)
-    if B > 1:
-        rofs = (pix // (H * W)) * T
-    else:
-        rofs = None
-    xs, xo, ys, yo = coord.pixel_scale_offset(H, W)
-    fxc = (pix % W).astype(jnp.float32) * xs + xo
-    fyc = ((pix // W) % H).astype(jnp.float32) * ys + yo
-    out15 = ptp.interp_raster_bwd_tex(
-        atbl, vtbl, idf, u, v, gu, gv, gda4, db4, rofs, fxc, fyc, T,
-        2.0 / W, 2.0 / H, interpret=interpret)
-
-    # 5. One fused MXU scatter for attr + raster + AA pair gradients.
-    tid0 = coord.float_to_triidx(idf) - 1
-    valid = (tid0 >= 0) & (tid0 < T)
-    rid0v = jnp.where(valid, tid0, 0) + (rofs if rofs is not None else 0)
-    gt, gaa = pp.pipeline_grad_scatter(
-        rid0v, out15[:11], dd2, rid2, u, v, ax2[0], ax2[1], vtbl[:, :R],
-        2, R, W, H, da4=out15[11:15], interpret=interpret)
-
-    ga = gt[:, :6].reshape(B, T, 3, 2)
-    g9 = gt[:, 6:].reshape(B, T, 3, 3)
-
-    Va = uv_attr.shape[-2]
-    g2 = jnp.zeros((Va, 2), jnp.float32).at[uv_tri].add(
-        ga.sum(axis=0), mode="drop")
-    g_uv = g2[None] if uv_attr.ndim == 3 else g2
-
-    def pos9(gt9):
-        gv9 = jnp.zeros((B, T, 3, 4), jnp.float32)
-        gv9 = gv9.at[..., 0].set(gt9[..., 0])
-        gv9 = gv9.at[..., 1].set(gt9[..., 1])
-        gv9 = gv9.at[..., 3].set(gt9[..., 2])
-        return jnp.zeros((B, V, 4), jnp.float32).at[:, tri].add(
-            gv9, mode="drop")
-
-    g_pos = pos9(g9)
-    g_pos_aa = pos9(gaa.reshape(B, T, 3, 3))
-    if boost != 1.0:
-        g_pos_aa = g_pos_aa * boost
-    return g_pos + g_pos_aa, g_uv, g_tex
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(6, 7, 8, 9, 10, 11))
-def _ptex_prim(pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
-               filter_mode, boundary_mode, max_mip_level, boost, impl):
-    img, _ = _ptex_fwd_core(pos, uv_attr, tex, tri, uv_tri, op_table,
-                            resolution, filter_mode, boundary_mode,
-                            max_mip_level, impl)
-    return img
-
-
-def _ptex_prim_fwd(pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
-                   filter_mode, boundary_mode, max_mip_level, boost, impl):
-    img, saved = _ptex_fwd_core(pos, uv_attr, tex, tri, uv_tri, op_table,
-                                resolution, filter_mode, boundary_mode,
-                                max_mip_level, impl)
-    return img, saved
-
-
-def _ptex_prim_bwd(resolution, filter_mode, boundary_mode, max_mip_level,
-                   boost, impl, saved, dy):
-    g_pos, g_uv, g_tex = _ptex_bwd_core(
-        resolution, filter_mode, boundary_mode, max_mip_level, boost,
-        impl, saved, dy)
-    tri, uv_tri, op_table = saved[3], saved[4], saved[5]
-    return (g_pos, g_uv, g_tex, _int_zero_ct(tri), _int_zero_ct(uv_tri),
-            _int_zero_ct(op_table))
-
-
-_ptex_prim.defvjp(_ptex_prim_fwd, _ptex_prim_bwd)
+from .antialias import antialias
+from .interpolate import interpolate
+from .rasterize import rasterize
+from .texture import texture
 
 
 def render_pipeline_textured(pos, tri, uv_attr, tex, resolution,
@@ -255,10 +27,10 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution,
                              boundary_mode="wrap", max_mip_level=-1,
                              pos_gradient_boost=1.0, topology_hash=None,
                              impl="auto"):
-    """Fused rasterize + uv-interpolate + texture + antialias.
+    """Render rasterize + uv-interpolate + texture + antialias.
 
     Args:
-      pos: [B, V, 4] clip-space positions (instance mode only).
+      pos: [B, V, 4] clip-space positions.
       tri: [T, 3] int32.
       uv_attr: [Vu, 2] (or [1, Vu, 2]) texture coordinates — or
         [Vu, 3] direction vectors for boundary_mode='cube'.
@@ -266,162 +38,28 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution,
         (D == 1 or B).
       resolution: (H, W).
       uv_tri: [T, 3] int32 uv indices (defaults to `tri`).
-      filter_mode / boundary_mode / max_mip_level: as in `texture`.
+      filter_mode / boundary_mode / max_mip_level: as in `texture`
+        (max_mip_level=-1 builds the full pyramid).
       pos_gradient_boost: antialias position-gradient multiplier.
       topology_hash: optional `TopologyHashWrapper` (from
         `antialias_construct_topology_hash`) so a static mesh's
         opposite-vertex table is not rebuilt every step.
-      impl: 'auto' | 'pallas' | 'pallas_interpret' | 'xla' ('xla'
-        always takes the composed fallback).
+      impl: coverage route of `rasterize`.
 
     Returns:
       [B, H, W, C] antialiased textured image.
     """
-    from . import antialias_pallas as ap
-    from . import interpolate_pallas as ip
-    from . import texture_pallas as tp
-    from .antialias import TopologyHashWrapper, antialias, antialias_flat
-    from .interpolate import interpolate, interpolate_flat
-    from .rasterize import _check_rasterize_args, rasterize, rasterize_flat
-    from .texture import (_cube_faceid, _cube_project, _cube_st_da_cols,
-                          _mip_level_from_footprint_cols, _pack_pyramid,
-                          _static_meta, build_mip_stack, dispatch_fused_cols,
-                          texture)
-    from .topology import build_opposite_table
-
-    pos = jnp.asarray(pos, jnp.float32)
-    tri = jnp.asarray(tri, jnp.int32)
-    uv_attr = jnp.asarray(uv_attr, jnp.float32)
-    tex = jnp.asarray(tex, jnp.float32)
-    if uv_tri is None:
-        uv_tri = tri
-    else:
-        uv_tri = jnp.asarray(uv_tri, jnp.int32)
-
-    # Same loud input validation as the standalone rasterize op (the
-    # fused path must not silently clamp bad indices or >2^24 meshes).
-    _check_rasterize_args(pos, tri, resolution, None)
-
-    H, W = resolution
-    instance_mode = pos.ndim == 3
-    B = pos.shape[0] if instance_mode else 0
-    T = tri.shape[0]
-    N = B * H * W
-    C = tex.shape[-1]
-    D = tex.shape[0]
-    cube_mode = boundary_mode == "cube"
-    A = 3 if cube_mode else 2
-
-    # Shared mip pyramid (differentiable; gradients pull back to tex).
+    uv_tri = tri if uv_tri is None else uv_tri
     use_mip = "mipmap" in filter_mode
-    levels = [tex] + (build_mip_stack(tex, max_mip_level, cube_mode)
-                      if use_mip else [])
-    smeta, n_texels = _static_meta(levels)
-    L = len(levels)
-
-    want = (impl in ("pallas", "pallas_interpret")
-            or (impl == "auto" and jax.default_backend() == "tpu"))
-    fused_ok = (
-        want and instance_mode and tex.ndim == (5 if cube_mode else 4)
-        and uv_attr.shape[-1] == A
-        and (uv_attr.ndim == 2 or uv_attr.shape[0] == 1)
-        and D in (1, B)
-        and filter_mode in ("linear", "linear-mipmap-nearest",
-                            "linear-mipmap-linear")
-        and tp.supported(C, n_texels, N, cube_mode, boundary_mode,
-                         force=True, meta=smeta, L=L)
-        and ip.supported(A, T, N, force=True)
-        and ap.supported(C, B * T))
-
-    if not fused_ok:
+    with jax.named_scope("nvdiffrast.render_pipeline_textured"):
         rast, rast_db = rasterize(None, pos, tri, resolution,
                                   grad_db=use_mip, impl=impl)
         uv, uv_da = interpolate(uv_attr, rast, uv_tri, rast_db,
-                                diff_attrs="all" if use_mip else None,
-                                impl=impl)
-        img = texture(tex, uv, uv_da=uv_da if use_mip else None,
-                      filter_mode=filter_mode,
-                      boundary_mode=boundary_mode,
-                      max_mip_level=max_mip_level, impl=impl)
-        return antialias(img, rast, pos, tri,
-                         topology_hash=topology_hash,
-                         pos_gradient_boost=pos_gradient_boost, impl=impl)
-
-    # ---- fused flat chain with the slim pipeline-level backward ----
-    # 2-D mip modes take the pipeline custom_vjp (one fused
-    # interp+raster backward pass + one MXU gradient scatter); cube
-    # and no-mip configurations keep the composed flat chain below.
-    from . import pipeline_pallas as pp
-    if use_mip and not cube_mode and pp.supported(2, B * T):
-        if topology_hash is not None:
-            assert isinstance(topology_hash, TopologyHashWrapper)
-            op_table = topology_hash.op_table
-        else:
-            op_table = build_opposite_table(tri)
-        with jax.named_scope("nvdiffrast.render_pipeline_textured"):
-            return _ptex_prim(pos, uv_attr, tex, tri, uv_tri, op_table,
-                              tuple(int(x) for x in resolution),
-                              filter_mode, boundary_mode, max_mip_level,
-                              float(pos_gradient_boost), impl)
-
-    # ---- fused flat chain (composed op backwards) ----
-    # No-mip filtering needs no pixel differentials: skip the db
-    # accumulator channels in the raster kernel and the da columns in
-    # the interp kernel entirely.
-    if use_mip:
-        u, v, zw, idf, d0, d1, d2, d3 = rasterize_flat(
-            pos, tri, resolution, impl, True)
-        db01 = jnp.stack([d0, d1])
-        db23 = jnp.stack([d2, d3])
-        diff_list = tuple(range(A))
-    else:
-        u, v, zw, idf = rasterize_flat(pos, tri, resolution, impl, False)
-        db01 = db23 = jnp.zeros((2, N), jnp.float32)
-        diff_list = ()
-    uv_cm, da_cm = interpolate_flat(
-        uv_attr, u, v, idf, uv_tri, db01, db23, diff_list, impl)
-
-    tex_w = jnp.float32(tex.shape[-2])
-    tex_h = jnp.float32(tex.shape[-3])
-    flat, _meta = _pack_pyramid(levels, cube_mode)
-    if D == 1:
-        tz = jnp.zeros((N,), jnp.int32)
-    else:
-        tz = jnp.arange(N, dtype=jnp.int32) // (H * W)
-
-    cube_cols = None
-    u_col = v_col = None
-    if cube_mode:
-        finfo = _cube_faceid(uv_cm[0], uv_cm[1], uv_cm[2])
-        sc, tc, finite = _cube_project(finfo, uv_cm[0], uv_cm[1],
-                                       uv_cm[2])
-        cube_cols = (sc, tc, finite, finfo[0])
-        if use_mip:
-            st4 = _cube_st_da_cols(uv_cm[0], uv_cm[1], uv_cm[2],
-                                   [da_cm[i] for i in range(6)])
-            flevel = jnp.clip(
-                _mip_level_from_footprint_cols(*st4, tex_w, tex_h),
-                0.0, float(L - 1))
-        else:
-            flevel = jnp.zeros((N,), jnp.float32)
-    else:
-        u_col, v_col = uv_cm[0], uv_cm[1]
-        if use_mip:
-            flevel = jnp.clip(
-                _mip_level_from_footprint_cols(
-                    da_cm[0], da_cm[1], da_cm[2], da_cm[3], tex_w, tex_h),
-                0.0, float(L - 1))
-        else:
-            flevel = jnp.zeros((N,), jnp.float32)
-    out_cm = dispatch_fused_cols(
-        flat, smeta, levels, cube_mode, u_col, v_col, flevel, tz,
-        boundary_mode, filter_mode, (B, H, W),
-        impl == "pallas_interpret", cube_cols)
-
-    if topology_hash is not None:
-        assert isinstance(topology_hash, TopologyHashWrapper)
-        op_table = topology_hash.op_table
-    else:
-        op_table = build_opposite_table(tri)
-    return antialias_flat(out_cm, idf, zw, pos, tri, op_table,
-                          (B, H, W, C), pos_gradient_boost, impl)
+                                diff_attrs="all" if use_mip else None)
+        img = texture(jnp.asarray(tex, jnp.float32), uv,
+                      uv_da=uv_da if use_mip else None,
+                      filter_mode=filter_mode, boundary_mode=boundary_mode,
+                      max_mip_level=None if max_mip_level < 0
+                      else max_mip_level)
+        return antialias(img, rast, pos, tri, topology_hash=topology_hash,
+                         pos_gradient_boost=pos_gradient_boost)

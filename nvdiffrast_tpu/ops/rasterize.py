@@ -1,21 +1,24 @@
-"""Differentiable rasterization (TPU-native).
+"""Differentiable rasterization.
 
 Replaces the reference's CudaRaster 4-stage atomic pipeline
-(csrc/common/cudaraster/**) with a TPU-shaped two-phase design:
+(csrc/common/cudaraster/**) with a two-phase design:
 
-1. **Geometry phase** (vectorized XLA): gather triangle vertices,
-   near-plane clip each triangle into at most 2 statically-allocated
-   subtriangles (no dynamic shapes), and precompute per-subtriangle
-   *affine* edge/plane coefficients: each homogeneous edge function
+1. **Geometry phase** (vectorized XLA, ``binning.build_records``):
+   gather triangle vertices and precompute per-triangle *affine*
+   edge/plane coefficients: each homogeneous edge function
    ``a_i(fx, fy)`` is affine in the pixel-center clip coordinates
    (the bilinear terms cancel), so per-pixel coverage costs 2 FMAs/edge.
+   The near plane is an affine per-fragment cut test, so no
+   subtriangles are materialized.
 
 2. **Pixel phase**: a ``lax.scan`` over triangle chunks carrying a
    running ``(depth, id)`` minimum per pixel — the deterministic-ROP
    equivalent of the reference's atomicMin+tiebreak
    (csrc/common/cudaraster/impl/FineRaster.inl:152-172) with *lowest
    triangle index wins depth ties* (deterministic by construction,
-   no atomics). A Pallas tiled kernel provides the fast path on TPU.
+   no atomics). On a GPU the binned coverage kernel
+   (``coverage_kernel.py``) replaces the scan: one program per pixel
+   tile walks only the triangles binned to it.
 
 The final per-pixel shading (barycentrics + image-space derivatives)
 and the backward pass replicate the reference math exactly:
@@ -33,7 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import coord
+from . import binning, coord
 
 
 def _int_zero_ct(x):
@@ -49,19 +52,19 @@ _DEFAULT_CHUNK = 64
 
 _INT32_MAX = jnp.iinfo(jnp.int32).max
 
-# Rational-depth sentinel; matches rasterize_pallas._BIG.
+# Rational-depth sentinel; matches binning.BIG.
 _RAT_BIG = 1e30
 
 
 # ---------------------------------------------------------------------------
-# Context shims (API parity only — TPU needs no GPU context object).
+# Context shims (API parity only — no context object is needed).
 # ---------------------------------------------------------------------------
 
 class RasterizeCudaContext:
     """Stateless rasterizer context for API parity with the reference.
 
     The reference context owns a per-device CudaRaster instance
-    (nvdiffrast/torch/ops.py:47-68); on TPU all state lives in traced
+    (nvdiffrast/torch/ops.py:47-68); here all state lives in traced
     arrays, so this object only tracks the active depth peeler guard.
     """
 
@@ -93,68 +96,6 @@ class RasterizeGLContext(RasterizeCudaContext):
 # ---------------------------------------------------------------------------
 # Geometry phase.
 # ---------------------------------------------------------------------------
-
-def _near_clip_subtris(v):
-    """Clip triangles against the w >= eps plane into <= 2 subtriangles.
-
-    Replaces the reference's barycentric frustum clipper
-    (csrc/common/cudaraster/impl/Util.inl:134-160); only the near plane
-    needs geometric clipping on TPU — x/y planes are handled by the
-    finite pixel grid and z planes by per-fragment depth rejection.
-
-    Args:
-      v: [..., 3, 4] triangle vertex positions (clip space).
-
-    Returns:
-      sub: [..., 2, 3, 4] subtriangle vertices.
-      valid: [..., 2] bool, whether each subtriangle slot is live.
-    """
-    w = v[..., 3]
-    inside = w >= _W_CLIP_EPS  # [..., 3]
-    n_in = inside.sum(axis=-1)  # [...]
-
-    # Rotate vertices so the inside-pattern is canonical:
-    #   c==1 -> inside vertex first; c==2 -> inside vertices first.
-    i0, i1, i2 = inside[..., 0], inside[..., 1], inside[..., 2]
-    # Rotation amount k in {0,1,2}.
-    k_one = jnp.where(i0, 0, jnp.where(i1, 1, 2))
-    k_two = jnp.where(~i2, 0, jnp.where(~i0, 1, 2))  # outside vertex last
-    k = jnp.where(n_in == 1, k_one, jnp.where(n_in == 2, k_two, 0))
-
-    idx = (k[..., None] + jnp.arange(3, dtype=k.dtype)) % 3  # [..., 3]
-    r = jnp.take_along_axis(v, idx[..., None], axis=-2)  # rotated verts
-
-    r0, r1, r2 = r[..., 0, :], r[..., 1, :], r[..., 2, :]
-
-    def isect(p, q):
-        # Intersection of segment p-q with the w = eps plane.
-        denom = q[..., 3] - p[..., 3]
-        safe = jnp.where(jnp.abs(denom) > 0, denom, 1.0)
-        t = (_W_CLIP_EPS - p[..., 3]) / safe
-        t = jnp.clip(t, 0.0, 1.0)[..., None]
-        return p + t * (q - p)
-
-    i01 = isect(r0, r1)
-    i02 = isect(r0, r2)
-    i12 = isect(r1, r2)
-
-    case_all = (n_in == 3)
-    case_one = (n_in == 1)
-    case_two = (n_in == 2)
-
-    c = case_one[..., None]
-    d = case_two[..., None]
-    # c==3: (r0, r1, r2); c==1: (r0, i01, i02); c==2: (r0, r1, i12).
-    s0_v1 = jnp.where(c, i01, r1)
-    s0_v2 = jnp.where(c, i02, jnp.where(d, i12, r2))
-    sub0 = jnp.stack([r0, s0_v1, s0_v2], axis=-2)
-    # Second slot only for c==2: (r0, i12, i02).
-    sub1 = jnp.stack([r0, i12, i02], axis=-2)
-
-    sub = jnp.stack([sub0, sub1], axis=-3)  # [..., 2, 3, 4]
-    valid = jnp.stack([case_all | case_one | case_two, case_two], axis=-1)
-    return sub, valid
-
 
 def _dop(a, b, c, d):
     """Deterministic, correctly-rounded f32 difference of products
@@ -202,81 +143,30 @@ def _edge_coeffs(sub):
     * Exact negation symmetry: the two triangles sharing a mesh edge
       compute the coefficient with operands swapped, and correct
       rounding is odd (fl(-x) = -fl(x)), so the two sides see BITWISE
-      opposite values (see _area_form). A plain f32 expression does
+      opposite values (see binning.build_records). A plain f32 expression does
       not have this: backends contract ``fl(a*b) - fl(c*d)`` into
       ``fma(a, b, -fl(c*d))`` (measured on XLA:CPU — ~30% of opposed
       pairs off by 1 ulp), and do so under jit but not eagerly,
       breaking jit/eager determinism too (test_jit_compatible).
     * A bitwise-duplicate (x, y, w) vertex pair gets exact-zero
       coefficients (a*b - a*b is exactly 0 in f64); such degenerate
-      triangles are culled by the forward cores
-      (_degenerate_tri_mask) because an all-zero edge row would
-      otherwise leave coverage to the tie rule + noise rows.
+      triangles are culled (binning.build_records) because an
+      all-zero edge row would otherwise leave coverage to the tie rule
+      + noise rows.
 
     Correct rounding also kills the coverage-polytope drift that plain
     construction had: the computed edge line is within 0.5 ulp OF THE
     COEFFICIENT of exact, where the plain difference was off by the
     rounding of the PRODUCTS — ~1 px of polytope displacement for
-    cancelling slivers (the round-3 CSR escapees; see _coverage_slop).
+    cancelling slivers (see binning.coverage_slop).
+
+    The tensor form of binning.edge_coeffs_cols (same _dop calls).
     """
-    x = sub[..., 0]
-    y = sub[..., 1]
-    w = sub[..., 3]
+    def cols(c):
+        return tuple(sub[..., j, c] for j in range(3))
 
-    def edge(j, kk):
-        xj, yj, wj = x[..., j], y[..., j], w[..., j]
-        xk, yk, wk = x[..., kk], y[..., kk], w[..., kk]
-        c0 = _dop(xj, yk, xk, yj)
-        cx = _dop(yj, wk, wj, yk)
-        cy = _dop(wj, xk, xj, wk)
-        return jnp.stack([c0, cx, cy], axis=-1)
-
-    # a0 from (v1, v2), a1 from (v2, v0), a2 from (v0, v1).
-    return jnp.stack([edge(1, 2), edge(2, 0), edge(0, 1)], axis=-2)
-
-
-def _degenerate_tri_mask(tv):
-    """True for triangles with a bitwise-duplicate (x, y, w) vertex
-    pair. _edge_coeffs gives such a pair an exact-zero edge row; left
-    alive, coverage would fall to the tie rule over the remaining
-    (noise-level) rows, so the forward cores cull these explicitly.
-    The reference culls zero-area triangles after its fixed-point snap
-    (cudaraster/impl/TriangleSetup.inl:130-137)."""
-    x, y, w = tv[..., 0], tv[..., 1], tv[..., 3]
-
-    def eq(j, k):
-        return ((x[..., j] == x[..., k]) & (y[..., j] == y[..., k])
-                & (w[..., j] == w[..., k]))
-
-    return eq(0, 1) | eq(1, 2) | eq(2, 0)
-
-
-def _area_form(ecoef, verts):
-    """Homogeneous area form D = a_0 evaluated at vertex 0.
-
-    D = c0*w0 + cx*x0 + cy*y0 = det[(x,y,w) of v0, v1, v2]. Multiplying
-    every per-triangle affine quantity by sign(D) normalizes winding:
-    edge interiors become positive and the interpolated w positive —
-    the TPU-shaped substitute for the reference's v1/v2 swap when the
-    snapped area is negative (TriangleSetup.inl:130-137). D == 0 marks
-    a degenerate (zero-area) triangle to cull.
-
-    Watertightness note: a mesh edge shared by two triangles produces
-    *bitwise* opposite edge coefficients on the two sides —
-    _edge_coeffs computes each coefficient with the vertex pair in
-    canonical value order and applies the winding sign afterwards
-    (multiplication by -1 is exact), so the two sides evaluate the
-    IDENTICAL expression and differ only by that exact negation. With
-    the exclusive ==0 tie rule (`_tie_bits`) every pixel on the shared
-    edge is then claimed by exactly one side. This is exact at full
-    f32 precision, where the reference needs a 1/16-px integer snap +
-    exact integer edge functions (impl/Util.inl:214-309). (The naive
-    j,k-order expression does NOT have this property under the
-    backend's fma contraction — see _edge_coeffs.)
-    """
-    c = ecoef[..., 0, :]
-    return (c[..., 0] * verts[..., 0, 3] + c[..., 1] * verts[..., 0, 0]
-            + c[..., 2] * verts[..., 0, 1])
+    e = binning.edge_coeffs_cols(cols(0), cols(1), cols(3))
+    return jnp.stack([jnp.stack(ek, axis=-1) for ek in e], axis=-2)
 
 
 def _tie_bits(ecoef):
@@ -291,23 +181,6 @@ def _tie_bits(ecoef):
     cx = ecoef[..., 1]
     cy = ecoef[..., 2]
     return (cy > 0) | ((cy == 0) & (cx > 0))
-
-
-def _plane_coeffs(tri_verts):
-    """Affine coefficients of interpolated z and w (parent triangle).
-
-    z(fx,fy) = sum_i z_i * a_i(fx,fy) is affine with coefficients
-    sum_i z_i * coeff(a_i); likewise w.
-
-    Returns:
-      zc, wc: [..., 3] each, (const, fx, fy).
-    """
-    e = _edge_coeffs(tri_verts)  # [..., 3(edge), 3(coef)]
-    z = tri_verts[..., 2]
-    w = tri_verts[..., 3]
-    zc = jnp.einsum("...e,...ec->...c", z, e)
-    wc = jnp.einsum("...e,...ec->...c", w, e)
-    return zc, wc
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +282,7 @@ def _coverage_xla(ecoef, zcoef, wcoef, valid, tri_ids, batch_shape, resolution,
               jnp.moveaxis(wcoef_c, 1, 0), jnp.moveaxis(valid_c, 1, 0), ids_c)
 
     # Rational depth carry: (numerator, denominator>0, id). Matches the
-    # fused kernel's initialization (_BIG, 1, invalid).
+    # binned kernel's initialization (BIG, 1, invalid).
     zbuf0 = jnp.full((B, H, W), _RAT_BIG, jnp.float32)
     wbuf0 = jnp.ones((B, H, W), jnp.float32)
     idbuf0 = jnp.full((B, H, W), _INT32_MAX, jnp.int32)
@@ -449,7 +322,7 @@ def _coverage_xla(ecoef, zcoef, wcoef, valid, tri_ids, batch_shape, resolution,
         # Fragment z-clip (geometric clip in the reference's
         # TriangleSetup; per-fragment here, exact for the z planes).
         # All depth comparisons are cross-multiplied rationals, never
-        # divided — the same compare primitive the fused kernel uses.
+        # divided — the same compare primitive the binned kernel uses.
         # Note the merge ORDER differs (pairwise tree here, sequential
         # in the kernel), so f32 cross-product rounding can pick
         # different winners at (near-)tied depths; the parity sweep
@@ -616,8 +489,8 @@ def _raster_grad_pixel_cols(pos, tri, idf, dyx, dyy, ddb_cols, resolution,
     The math of _rasterize_bwd_cols WITHOUT the final scatter: returns
     (g [9, N] channel-major pixel gradients, rid [N] table rows with
     invalid pixels routed to the dummy row R, R, T) so callers that
-    fuse several gradient streams into one MXU scatter (the textured
-    pipeline, ops/pipeline_tex.py) can merge these rows with theirs.
+    merge several gradient streams into one reduction can concatenate
+    these rows with theirs.
     """
     H, W = resolution
     enable_db = ddb_cols is not None
@@ -676,6 +549,11 @@ def _raster_grad_pixel_cols(pos, tri, idf, dyx, dyy, ddb_cols, resolution,
 
     b0 = a0 * iw
     b1 = a1 * iw
+    # Materialize the terms every output column shares: left to fuse,
+    # XLA recomputes the whole expression inside each of the 9 column
+    # kernels (and its GPU compile time grows with it).
+    iw, b0, b1, p0x, p0y, p1x, p1y, p2x, p2y = jax.lax.optimization_barrier(
+        (iw, b0, b1, p0x, p0y, p1x, p1y, p2x, p2y))
 
     gb0 = dyx * iw
     gb1 = dyy * iw
@@ -733,6 +611,8 @@ def _raster_grad_pixel_cols(pos, tri, idf, dyx, dyy, ddb_cols, resolution,
         cy = c0 * fy - d1 * b0 - d3 * b1
         cxy = iw * (d0 * datdX + d1 * datdY)
         czw = iw * (d2 * datdX + d3 * datdY)
+        c0, cx, cy, cxy, czw = jax.lax.optimization_barrier(
+            (c0, cx, cy, cxy, czw))
 
         gp0x = gp0x + c0 * y12 - cy * w12 + czw * p2y + d3 * w2
         gp1x = gp1x + c0 * y20 - cy * w20 - cxy * p2y - d1 * w2
@@ -757,11 +637,10 @@ def _rasterize_bwd_cols(pos, tri, idf, dyx, dyy, ddb_cols, resolution, B,
                         instance_mode, viewport=None):
     """Vertex position gradients (re-derivation of rasterize.cu:119-273).
 
-    TPU-shaped data flow: per-pixel state lives in flat [N] SoA vectors
-    (no tiny trailing dims -> no tile-padding blowups), the per-triangle
-    vertex data is one row-gather from a [T(+1), 9] table, and the
-    pixel->vertex reduction is a two-level deterministic scatter
-    (pixels -> triangle table on the MXU, then triangles -> vertices).
+    Data flow: per-pixel state lives in flat [N] SoA vectors, the
+    per-triangle vertex data is one row-gather from a [9, T(+1)] table,
+    and the pixel->vertex reduction is two-level (pixels -> triangle
+    table, then triangles -> vertices).
 
     Flat boundary: `idf` is the rast id channel [N]; `dyx`/`dyy` the
     bary cotangents [N]; `ddb_cols` the 4 db cotangent columns or None.
@@ -776,12 +655,8 @@ def _rasterize_bwd_cols(pos, tri, idf, dyx, dyy, ddb_cols, resolution, B,
     else:
         V = pos.shape[0]
 
-    # Level 1: pixels -> per-triangle gradient table (MXU one-hot).
-    # Winner ids of nearby pixels index nearby triangles for any mesh
-    # with spatial index locality, so the row-blocked path's per-block
-    # chunk remap stays sparse (coherent=True is a perf promise only —
-    # incoherent ids would just sweep more windows).
-    gt = scatter_add_by_id(rid, g, R, coherent=True)  # [(B*)T, 9]
+    # Level 1: pixels -> per-triangle gradient table.
+    gt = scatter_add_by_id(rid, g, R)  # [(B*)T, 9]
 
     # Level 2: triangle table -> vertex gradients (tiny scatter).
     gt = gt.reshape(-1, T, 3, 3)  # [B?, T, vert, (x, y, w)]
@@ -803,61 +678,61 @@ def _rasterize_bwd_cols(pos, tri, idf, dyx, dyy, ddb_cols, resolution, B,
 # Core forward (coverage + shade), used by the custom_vjp primitive.
 # ---------------------------------------------------------------------------
 
-def _rasterize_fwd_core(pos, tri, resolution, ranges, peel_depth, chunk,
-                        impl="auto", viewport=None):
+_IMPLS = ("auto", "xla", "triton_interpret")
+
+
+def _target_platform():
+    """Platform the computation is placed on: the `jax.default_device`
+    in effect, else the default backend."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend()
+    return dev if isinstance(dev, str) else dev.platform
+
+
+def _use_kernel(impl):
+    """Coverage route: the binned kernel on a GPU ('auto'), the XLA
+    scan ('xla', and 'auto' elsewhere), or the kernel in the Pallas
+    interpreter ('triton_interpret', for tests without a GPU)."""
+    if impl not in _IMPLS:
+        raise ValueError(f"rasterize: impl must be one of {_IMPLS}; "
+                         f"got {impl!r}")
+    return impl == "triton_interpret" or (
+        impl == "auto" and _target_platform() == "gpu")
+
+
+def _coverage(pos, tri, resolution, ranges, peel_depth, chunk, impl="auto",
+              viewport=None):
+    """Per-pixel winning triangle index ([B, H, W] int32, -1 if empty)
+    and depth z/w ([B, H, W] f32, +inf if empty), by either route."""
     instance_mode = pos.ndim > 2
-    H, W = resolution
     T = tri.shape[0]
 
-    use_pallas = (
-        impl in ("pallas", "pallas_interpret")
-        or (impl == "auto" and jax.default_backend() == "tpu"))
-    use_pallas &= T < (1 << 24)
+    if _use_kernel(impl):
+        from .coverage_kernel import coverage_binned
 
-    if use_pallas:
-        from .rasterize_pallas import rasterize_fused
-
-        if instance_mode and ranges is None:
-            ranges = jnp.broadcast_to(
-                jnp.array([[0, T]], jnp.int32), (pos.shape[0], 2))
-        return rasterize_fused(
-            pos, tri, resolution, ranges, peel_depth,
-            interpret=(impl == "pallas_interpret"), viewport=viewport)
+        return coverage_binned(
+            pos, tri, resolution, ranges, peel_depth, viewport=viewport,
+            interpret=(impl == "triton_interpret"))
 
     if T >= (1 << 17):
         import warnings
 
         warnings.warn(
-            f"rasterize: XLA fallback evaluates all {T} triangles at "
-            f"every pixel (O(T*N)) — minutes at this size. Use "
-            f"impl='pallas' on TPU (binned sweep, occupancy-"
-            f"proportional); the fallback is meant for CPU tests and "
-            f"small meshes.", stacklevel=2)
+            f"rasterize: the XLA coverage path evaluates all {T} "
+            f"triangles at every pixel (O(T*N)); at this size that takes "
+            f"seconds to minutes per call. On a GPU, impl='auto' runs "
+            f"the binned coverage kernel instead.", stacklevel=3)
 
-    if instance_mode:
-        B = pos.shape[0]
-        tv = pos[:, tri]  # [B, T, 3, 4]
-    else:
-        B = ranges.shape[0]
-        tv = pos[tri]  # [T, 3, 4]
-
-    # One record per triangle: winding-normalized parent edge and plane
-    # coefficients. The near-clip cut is an affine per-fragment test
-    # inside _coverage_xla — no subtriangles anywhere.
-    ecoef_f = _edge_coeffs(tv)  # [.., T, 3, 3]
-    zc_f, wc_f = _plane_coeffs(tv)  # [.., T, 3]
-    pD = _area_form(ecoef_f, tv)  # [.., T]
-    # Barrier: pin po to ONE evaluation. XLA otherwise re-fuses pD's
-    # mul-add chain into each consumer with per-site FMA contraction;
-    # on an exactly-degenerate triangle (pD = +-1 ulp of noise) the
-    # sign can differ between the edge/plane rows, breaking the
-    # exact-negation edge pairing the watertight tie rule relies on
-    # (see _build_records_cm in rasterize_pallas.py).
-    po = jax.lax.optimization_barrier(jnp.where(pD < 0, -1.0, 1.0))
-    ecoef_f = ecoef_f * po[..., None, None]
-    zc_f = zc_f * po[..., None]
-    wc_f = wc_f * po[..., None]
-    sval_f = (pD != 0.0) & ~_degenerate_tri_mask(tv)
+    B = pos.shape[0] if instance_mode else ranges.shape[0]
+    # The kernel's records, one per triangle: winding-normalized parent
+    # edge and plane coefficients and the cull flag. The near-clip cut
+    # is an affine per-fragment test inside _coverage_xla.
+    rec = jnp.swapaxes(binning.build_records(pos, tri)[0], -1, -2)
+    ecoef_f = rec[..., :9].reshape(rec.shape[:-1] + (3, 3))  # [.., T, 3, 3]
+    zc_f = rec[..., 9:12]
+    wc_f = rec[..., 12:15]
+    sval_f = rec[..., 15] < binning.ID_VALID_THRESH
 
     tri_ids = jnp.arange(T, dtype=jnp.int32)
 
@@ -871,11 +746,16 @@ def _rasterize_fwd_core(pos, tri, resolution, ranges, peel_depth, chunk,
         rmask = (t_ar >= start) & (t_ar < start + count)  # [B, T]
         valid_f = sval_f[None, :] & rmask
 
-    idbuf, zbuf = _coverage_xla(
+    return _coverage_xla(
         ecoef_f, zc_f, wc_f, valid_f, tri_ids, B, resolution,
         peel_depth=peel_depth, chunk=chunk, viewport=viewport)
 
-    out, out_db = _shade(pos, tri, idbuf, resolution, instance_mode,
+
+def _rasterize_fwd_core(pos, tri, resolution, ranges, peel_depth, chunk,
+                        impl="auto", viewport=None):
+    idbuf, zbuf = _coverage(pos, tri, resolution, ranges, peel_depth, chunk,
+                            impl, viewport)
+    out, out_db = _shade(pos, tri, idbuf, resolution, pos.ndim > 2,
                          viewport=viewport)
     return out, out_db, zbuf
 
@@ -921,54 +801,6 @@ _rasterize_prim.defvjp(_rasterize_prim_fwd, _rasterize_prim_bwd)
 
 
 # ---------------------------------------------------------------------------
-# Flat-boundary primitive (fused textured pipeline). Emits per-channel
-# flat [N] buffers — no NHWC interleave, no [N, small] tile-padding —
-# for callers that chain further fused ops (ops/pipeline_tex.py).
-# ---------------------------------------------------------------------------
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
-def rasterize_flat(pos, tri, resolution, impl, emit_db):
-    """Fused rasterize, flat channel boundary (instance mode only).
-
-    Returns flat [B*H*W] float32 buffers: (u, v, zw, idf) plus, when
-    emit_db, (dudx, dudy, dvdx, dvdy). Differentiable w.r.t. `pos`
-    through the (u, v) and db channels.
-    """
-    return _rasterize_flat_fwd(pos, tri, resolution, impl, emit_db)[0]
-
-
-def _rasterize_flat_fwd(pos, tri, resolution, impl, emit_db):
-    from .rasterize_pallas import rasterize_fused
-
-    H, W = resolution
-    B, _, _ = pos.shape
-    T = tri.shape[0]
-    ranges = jnp.broadcast_to(jnp.array([[0, T]], jnp.int32), (B, 2))
-    outs = rasterize_fused(pos, tri, resolution, ranges, emit_db=emit_db,
-                           flat=True, interpret=(impl == "pallas_interpret"))
-    nc = 8 if emit_db else 4
-    flat = tuple(a.reshape(B * H * W) for a in outs[:nc])
-    return flat, (pos, tri, flat[3])
-
-
-def _rasterize_flat_bwd(resolution, impl, emit_db, res, cts):
-    pos, tri, idf = res
-    if emit_db:
-        du, dv, _dzw, _didf, g0, g1, g2, g3 = cts
-        ddb = (g0, g1, g2, g3)
-    else:
-        du, dv, _dzw, _didf = cts
-        ddb = None
-    g_pos = _rasterize_bwd_cols(
-        pos, tri, idf, du, dv, ddb, resolution, pos.shape[0],
-        instance_mode=True)
-    return (g_pos, _int_zero_ct(tri))
-
-
-rasterize_flat.defvjp(_rasterize_flat_fwd, _rasterize_flat_bwd)
-
-
-# ---------------------------------------------------------------------------
 # Public op.
 # ---------------------------------------------------------------------------
 
@@ -989,7 +821,7 @@ def _check_rasterize_args(pos, tri, resolution, ranges):
             f"rasterize: tri must be [num_triangles, 3]; got {tri.shape}")
     if tri.shape[0] >= (1 << 24):
         # Reference capacity bar: 2^24 subtriangles
-        # (csrc/common/cudaraster/impl/Constants.hpp:30). The fused
+        # (csrc/common/cudaraster/impl/Constants.hpp:30). The binned
         # kernel's triangle-id records share the same contract; fail
         # loudly instead of silently degrading to an O(T*N) scan.
         raise ValueError(
@@ -1025,7 +857,7 @@ def rasterize(glctx, pos, tri, resolution, ranges=None, grad_db=True,
 
     Args:
         glctx: Rasterizer context (`RasterizeCudaContext`) or None —
-            TPU keeps this for API parity only.
+            kept for API parity only.
         pos: Vertex position tensor, float32. Instanced mode:
             [minibatch_size, num_vertices, 4]; range mode:
             [num_vertices, 4] (with `ranges` supplied).
@@ -1036,8 +868,10 @@ def rasterize(glctx, pos, tri, resolution, ranges=None, grad_db=True,
         grad_db: Propagate gradients of image-space bary derivatives
             into `pos` in the backward pass.
         chunk: Triangles per scan step of the brute-force pixel phase.
-        impl: 'auto' | 'xla' | 'pallas'.
-        viewport: TPU extension for spatial sharding: (y0, full_height)
+        impl: coverage route: 'auto' (the binned kernel on a GPU, the
+            XLA scan elsewhere) | 'xla' | 'triton_interpret' (the kernel
+            in the Pallas interpreter; for tests without a GPU).
+        viewport: extension for spatial sharding: (y0, full_height)
             renders rows [y0, y0 + height) of a full_height-tall image
             (y0 may be a traced scalar, e.g. from jax.lax.axis_index).
             Band pixels are bit-identical to the same rows of the full
@@ -1064,7 +898,7 @@ def rasterize(glctx, pos, tri, resolution, ranges=None, grad_db=True,
             raise ValueError("range mode requires `ranges` (pos is 2D)")
         ranges = jnp.asarray(ranges, jnp.int32)
     else:
-        # Full-window placeholder (the fused kernel masks ids against it).
+        # Full-window placeholder (the binned kernel masks ids against it).
         ranges = jnp.broadcast_to(
             jnp.array([[0, tri.shape[0]]], jnp.int32), (pos.shape[0], 2))
     _check_rasterize_args(pos, tri, resolution, ranges)

@@ -1,6 +1,6 @@
 """Differentiable texture sampling (2D + cube map, full mip pipeline).
 
-TPU-native re-design of the reference texture op
+Re-design of the reference texture op
 (csrc/common/texture_kernel.cu, csrc/torch/torch_texture.cpp):
 
 * The mip pyramid is a **flat-packed buffer** (all levels concatenated
@@ -14,8 +14,9 @@ TPU-native re-design of the reference texture op
   (texture_kernel.cu:905-1154: texel scatter, analytic uv grads,
   footprint/uv_da grads, mip-bias grads, the four cube-map gradient
   transforms) is the analytic VJP of the forward; implementing the
-  forward faithfully in jnp makes JAX AD reproduce them all, with
-  deterministic scatter-adds instead of GPU atomics.
+  forward faithfully in jnp makes JAX AD reproduce them all (the texel
+  scatter is XLA's scatter-add: float atomics on a GPU, as in the
+  reference).
 * Seamless cube-map edge/corner filtering replaces the reference's
   48-entry constant LUTs (texture_kernel.cu:31-92) with a **geometric
   wrap**: an out-of-face texel's direction is reprojected through the
@@ -279,31 +280,10 @@ def _pack_pyramid(levels, cube_mode):
     return flat, meta
 
 
-def _static_meta(levels):
-    """((texel_offset, h, w) Python ints per level) for the fused path.
-
-    Offsets count texels of one [*, h, w] level block including the
-    minibatch axis (matching _pack_pyramid's row layout)."""
-    meta = []
-    off = 0
-    for lvl in levels:
-        h, w = int(lvl.shape[-3]), int(lvl.shape[-2])
-        n = 1
-        for s in lvl.shape[:-1]:
-            n *= int(s)
-        meta.append((off, h, w))
-        off += n
-    return tuple(meta), off
-
-
 def _gather(flat, idx, valid):
     """Row-gather [*, C] <- flat[NT, C]; invalid lanes give zeros.
 
-    idx/valid are flat [N]-shaped (SoA) — one gather per texel corner,
-    never a [.., 4, C] tiny-dim tensor (TPU tile-padding poison).
-    Stays on XLA's gather: texel ids mix mip levels, so their per-block
-    range defeats the Pallas lookup kernel's chunk skipping (measured
-    4x slower even on coherent uvs).
+    idx/valid are flat [N]-shaped (SoA) — one gather per texel corner.
     """
     idx_safe = jnp.where(valid, idx, 0)
     vals = flat[idx_safe]
@@ -503,16 +483,10 @@ def _sqrt_grad_safe_jvp(primals, tangents):
 
 
 def _mip_level_from_footprint(uv_da, tex_w, tex_h):
-    return _mip_level_from_footprint_cols(
-        uv_da[..., 0], uv_da[..., 1], uv_da[..., 2], uv_da[..., 3],
-        tex_w, tex_h)
-
-
-def _mip_level_from_footprint_cols(da0, da1, da2, da3, tex_w, tex_h):
-    dsdx = da0 * tex_w
-    dsdy = da1 * tex_w
-    dtdx = da2 * tex_h
-    dtdy = da3 * tex_h
+    dsdx = uv_da[..., 0] * tex_w
+    dsdy = uv_da[..., 1] * tex_w
+    dtdx = uv_da[..., 2] * tex_h
+    dtdy = uv_da[..., 3] * tex_h
     A = dsdx * dsdx + dtdx * dtdx
     B = dsdy * dsdy + dtdy * dtdy
     C = dsdx * dsdy + dtdx * dtdy
@@ -527,58 +501,6 @@ def _mip_level_from_footprint_cols(da0, da1, da2, da3, tex_w, tex_h):
     # NaN -> 0 like the reference's fminf/fmaxf semantics; -inf (zero
     # footprint) and +inf are fixed by the later clamp.
     return jnp.where(jnp.isnan(flevel), 0.0, flevel)
-
-
-def dispatch_fused_cols(flat, smeta, levels, cube_mode, u, v, flevel, tz,
-                        boundary_mode, filter_mode, shape, interpret,
-                        cube_cols=None):
-    """Route flat sampling columns to the fused Pallas sampler.
-
-    Shared by the texture op and the fused textured pipeline
-    (ops/pipeline_tex.py) so the two paths cannot diverge. For
-    cube_mode pass cube_cols = (s, t, finite, face) (already
-    projected); u/v are ignored then. The cube kernel's meta needs
-    (off, w, w) per face where smeta rows carry face blocks.
-    """
-    from . import texture_pallas as tp
-
-    L = len(levels)
-    if cube_mode:
-        sc, tc, finite, face = cube_cols
-        cmeta = tuple((off, int(lvl.shape[-2]), int(lvl.shape[-2]))
-                      for (off, _, _), lvl in zip(smeta, levels))
-        return tp.sample_cube_fused(flat.T, sc, tc, flevel, finite, face,
-                                    tz, cmeta, L, filter_mode, shape,
-                                    interpret)
-    return tp.sample_fused(flat.T, u, v, flevel, tz, smeta, L,
-                           boundary_mode, filter_mode, shape, interpret)
-
-
-def _cube_st_da_cols(x, y, z, d_cols):
-    """Column version of _cube_uv_da_to_st_da (flat pipeline).
-
-    d_cols: 6 columns (dxdX, dxdY, dydX, dydY, dzdX, dzdY). Returns 4
-    columns (dsdX, dsdY, dtdX, dtdY)."""
-    def proj(x_, y_, z_):
-        face, x_major, y_major, _zm, c = _cube_faceid(x_, y_, z_)
-        u_in = jnp.where(x_major, z_, x_)
-        v_in = jnp.where(y_major, z_, y_)
-        ok = jnp.abs(c) > 0
-        m = 0.5 / jnp.where(ok, jnp.abs(c), 1.0)
-        m0 = jnp.where((face == 0) | (face == 5), -m, m)
-        m1 = jnp.where(face == 2, m, -m)
-        okf = ok.astype(jnp.float32)
-        return u_in * m0 * okf, v_in * m1 * okf
-
-    _, (dsdX, dtdX) = jax.jvp(proj, (x, y, z),
-                              (d_cols[0], d_cols[2], d_cols[4]))
-    _, (dsdY, dtdY) = jax.jvp(proj, (x, y, z),
-                              (d_cols[1], d_cols[3], d_cols[5]))
-    cols = (dsdX, dsdY, dtdX, dtdY)
-    finite = jnp.isfinite(cols[0])
-    for c_ in cols[1:]:
-        finite = finite & jnp.isfinite(c_)
-    return tuple(jnp.where(finite, c_, 0.0) for c_ in cols)
 
 
 def _cube_uv_da_to_st_da(uv, uv_da):
@@ -618,18 +540,16 @@ def _cube_uv_da_to_st_da(uv, uv_da):
 # ---------------------------------------------------------------------------
 
 def texture(tex, uv, uv_da=None, mip_level_bias=None, mip=None,
-            filter_mode="auto", boundary_mode="wrap", max_mip_level=None,
-            impl="auto"):
+            filter_mode="auto", boundary_mode="wrap", max_mip_level=None):
     """Perform texture sampling (see `_texture_impl` for semantics)."""
     with jax.named_scope("nvdiffrast.texture"):
         return _texture_impl(tex, uv, uv_da, mip_level_bias, mip,
-                             filter_mode, boundary_mode, max_mip_level,
-                             impl)
+                             filter_mode, boundary_mode, max_mip_level)
 
 
 def _texture_impl(tex, uv, uv_da=None, mip_level_bias=None, mip=None,
                   filter_mode="auto", boundary_mode="wrap",
-                  max_mip_level=None, impl="auto"):
+                  max_mip_level=None):
     """Perform texture sampling.
 
     API parity with the reference op (nvdiffrast/torch/ops.py:345-439).
@@ -704,8 +624,7 @@ def _texture_impl(tex, uv, uv_da=None, mip_level_bias=None, mip=None,
     C = tex.shape[-1]
     N = B * H * W
 
-    # Flat SoA pixel axis: every per-pixel quantity is [N]/[N, K] so no
-    # tiny-trailing-dim tensor ever hits the (8, 128) tile padding.
+    # Flat SoA pixel axis: every per-pixel quantity is [N]/[N, K].
     uv = uv.reshape(N, uv.shape[-1])
     if D == 1:
         tz = jnp.zeros((N,), jnp.int32)
@@ -736,6 +655,11 @@ def _texture_impl(tex, uv, uv_da=None, mip_level_bias=None, mip=None,
         mip_level_max = 0
 
     flat, meta = _pack_pyramid(levels, cube_mode)
+    # Materialize the packed pyramid. Left to fuse, XLA compiles the mip
+    # chain into every corner gather and into their transposed scatters:
+    # on an H100 the 2048^2 trilinear fwd+bwd took 114 s to compile and
+    # 142 ms to run, 31.5 s and 123 ms with the barrier.
+    flat = jax.lax.optimization_barrier(flat)
 
     # ---- mip level selection (differentiable; shared by all paths) ----
     flevel = None
@@ -755,32 +679,6 @@ def _texture_impl(tex, uv, uv_da=None, mip_level_bias=None, mip=None,
             mip_level_bias = jnp.asarray(mip_level_bias, jnp.float32)
             flevel = flevel + mip_level_bias.reshape(N)
         flevel = jnp.clip(flevel, 0.0, float(mip_level_max))
-
-    # ---- fused Pallas sampler (TPU fast path, 2D linear modes) ----
-    from . import texture_pallas as tp
-
-    smeta, n_texels = _static_meta(levels)
-    want_fused = (impl in ("pallas", "pallas_interpret")
-                  or (impl == "auto" and jax.default_backend() == "tpu"))
-    if (want_fused and filter_mode != "nearest"
-            and tp.supported(C, n_texels, N, cube_mode, boundary_mode,
-                             force=(impl != "auto"),
-                             meta=smeta, L=len(levels))):
-        fl = flevel if flevel is not None else jnp.zeros((N,), jnp.float32)
-        cube_cols = None
-        u_col = v_col = None
-        if cube_mode:
-            finfo = _cube_faceid(uv[:, 0], uv[:, 1], uv[:, 2])
-            sc, tc, finite = _cube_project(finfo, uv[:, 0], uv[:, 1],
-                                           uv[:, 2])
-            cube_cols = (sc, tc, finite, finfo[0])
-        else:
-            u_col, v_col = uv[:, 0], uv[:, 1]
-        out_cm = dispatch_fused_cols(
-            flat, smeta, levels, cube_mode, u_col, v_col, fl, tz,
-            boundary_mode, filter_mode, (B, H, W),
-            impl == "pallas_interpret", cube_cols)
-        return unflatten(out_cm.T)
 
     # ---- nearest ----
     if filter_mode == "nearest":

@@ -1,6 +1,6 @@
 """Mesh topology: opposite-vertex table construction.
 
-TPU-native replacement for the reference's GPU edge-vertex hash
+Replacement for the reference's GPU edge-vertex hash
 (csrc/common/antialias.cu:45-160). Instead of a Jenkins-mix hash built
 with atomicCAS, we sort all 3T directed edges lexicographically by
 their canonical (vmin, vmax) key and extract, per edge group, the

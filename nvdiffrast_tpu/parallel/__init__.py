@@ -1,10 +1,9 @@
 """Multi-chip scaling: device meshes and sharded rendering.
 
 The reference is single-GPU-per-op (SURVEY.md section 2.6); this module
-is the TPU-native replacement: ``jax.sharding.Mesh`` over the pod
-slice, minibatch sharded over the data-parallel axis and image rows
-over the spatial axis, vertex/texture gradients all-reduced over ICI
-by XLA-inserted collectives.
+adds ``jax.sharding.Mesh`` scaling over several devices: minibatch
+sharded over the data-parallel axis and image rows over the spatial
+axis, vertex/texture gradients all-reduced by XLA-inserted collectives.
 """
 
 from .mesh import make_mesh, default_mesh

@@ -1,26 +1,23 @@
-"""Multi-host (pod-slice) runtime entry points.
+"""Multi-process entry points.
 
-The reference is strictly single-process/single-GPU (SURVEY.md §2.6);
-multi-host scaling is this framework's north-star extension. The
-recipe (jax-ml.github.io/scaling-book): initialize the distributed
-runtime, build one global Mesh over every chip of every host, lay the
-data-parallel axis over DCN (host boundary) and the spatial/model axes
-over ICI, and express programs with shard_map/GSPMD — XLA inserts the
-collectives and routes them over the right fabric.
+The reference is strictly single-process/single-GPU (SURVEY.md §2.6).
+Here one process can drive every card of a host; several processes
+(one per host, or one per card) join through JAX's distributed runtime
+and share one global Mesh. Programs are written with shard_map/GSPMD,
+and XLA routes the collectives (NCCL on GPUs).
 
 Usage (one call per process, before any other JAX work):
 
     import nvdiffrast_tpu.parallel.multihost as mh
-    mh.initialize()                      # env-driven (TPU pods: automatic)
-    mesh = mh.pod_mesh(dp_over_hosts=True)
+    mh.initialize("localhost:12345", num_processes=2, process_id=0)
+    mesh = mh.pod_mesh()
     step = shard_map_train_step(loss, opt, mesh)   # unchanged code
 
-Every op in this package is pure and shape-static, so the single-chip
-pipeline runs unmodified inside shard_map on each chip; only the
+Every op in this package is pure and shape-static, so the single-card
+pipeline runs unmodified inside shard_map on each card; only the
 gradient psums (dp) and the 1-row AA halo ppermutes (sp) touch the
-interconnect. dp collectives are O(params) and ride DCN fine; the sp
-halo is latency-bound and must stay on ICI — pod_mesh guarantees that
-by construction (hosts axis = slowest-varying = DCN).
+interconnect. Cards of one host are joined all to all (NVLink), so the
+mesh follows the algorithm alone.
 """
 
 import numpy as np
@@ -42,33 +39,24 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
                **kwargs):
     """Initialize the JAX distributed runtime (idempotent).
 
-    On Cloud TPU pods all arguments are discovered from the environment;
-    elsewhere pass them explicitly (reference: jax.distributed docs).
-    Safe to call in single-process runs — a no-op when there is nothing
-    to coordinate and no coordinator is configured.
+    Arguments are passed explicitly, or through JAX's own variables
+    (JAX_COORDINATOR_ADDRESS, with num_processes / process_id given
+    here). With neither, this is a no-op: a single-process run has
+    nothing to coordinate.
 
     MUST be called before any other JAX API that initializes the XLA
     backends (jax.devices, jax.process_count, any computation). When a
-    coordinator IS configured (args or pod env vars) but the backend
-    was already touched, this raises — a silent single-process
-    fallback on a real pod would mean N independent jobs, not one.
+    coordinator IS configured but the backend was already touched, this
+    raises — a silent single-process fallback would mean N independent
+    jobs, not one.
     """
     if _distributed_client_active():
         return  # idempotent: distributed runtime already up
     import os
 
-    # TPU_WORKER_HOSTNAMES is a comma-separated worker list; a single
-    # entry (e.g. 'localhost' on one-chip dev machines) is NOT a pod.
-    workers = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    env_pod = bool(os.environ.get("COORDINATOR_ADDRESS")
-                   or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-                   or len([w for w in workers.split(",") if w.strip()]) > 1)
-    if coordinator_address is None and num_processes is None and not env_pod:
+    if (coordinator_address is None and num_processes is None
+            and not os.environ.get("JAX_COORDINATOR_ADDRESS")):
         return  # single-process environment
-    # May raise RuntimeError ('must be called before any JAX
-    # computations') if the backend was touched first. That is a real
-    # multi-process setup going wrong — never downgrade it to a
-    # warning: a silent fallback on a pod means N independent jobs.
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -78,20 +66,19 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
 
 
 def pod_mesh(axis_names=("dp", "sp"), dp_over_hosts=True, devices=None):
-    """Global mesh over all hosts: hosts x local-chips.
+    """Global mesh over all processes: processes x local devices.
 
-    dp_over_hosts=True puts the data-parallel axis on the host (DCN)
-    boundary and the spatial axis inside each host (ICI) — the layout
-    where dp gradient psums cross DCN once per step while the
-    latency-sensitive sp halo exchanges stay on ICI.
+    dp_over_hosts=True puts the data-parallel axis across processes and
+    the spatial axis over each process's local cards, so the per-step
+    sp halo exchanges stay inside a host (NVLink) and only the dp
+    gradient reduction crosses hosts. False swaps the two axes.
 
     Returns a jax.sharding.Mesh with shape
     (num_processes, local_device_count) — or (1, n) single-process.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     n_hosts = jax.process_count()
-    per_host = devices.size // n_hosts
-    grid = devices.reshape(n_hosts, per_host)
+    grid = devices.reshape(n_hosts, devices.size // n_hosts)
     if not dp_over_hosts:
         axis_names = tuple(reversed(axis_names))
         grid = grid.T

@@ -1,10 +1,10 @@
 """Sharded rendering and training steps.
 
-TPU-native scaling strategy (SURVEY.md section 7): images are sharded
+Scaling strategy (SURVEY.md section 7): images are sharded
 over the mesh — minibatch on the "dp" axis, image rows (H) on the "sp"
 axis — while vertex/triangle data is replicated. Under ``jit`` with
 these shardings XLA partitions the per-pixel phases spatially and
-inserts ICI collectives (psum) for the vertex/texture gradient
+inserts collectives (psum) for the vertex/texture gradient
 reductions in the backward pass; nothing in the op implementations
 needs to change (they are pure, shape-static XLA programs).
 """
@@ -68,7 +68,7 @@ def sharded_train_step(loss_fn, optimizer, mesh, dp_axis="dp", sp_axis="sp"):
             lambda x: jax.lax.with_sharding_constraint(x, batch_sh), batch)
         loss, grads = jax.value_and_grad(loss_fn)(params, batch)
         # Gradients of replicated params are automatically psum-reduced
-        # over ICI by XLA; constrain to keep them replicated.
+        # by XLA; constrain to keep them replicated.
         grads = jax.tree.map(
             lambda g: jax.lax.with_sharding_constraint(g, repl), grads)
         import optax
@@ -84,8 +84,8 @@ def shard_map_train_step(loss_fn, optimizer, mesh, dp_axis="dp"):
     """Data-parallel training step via ``jax.shard_map``.
 
     Each device runs the FULL single-device pipeline (including the
-    Pallas kernels) on its minibatch shard; parameter gradients are
-    ``psum``-reduced over ICI. This is the production multi-chip path:
+    coverage kernel) on its minibatch shard; parameter gradients are
+    ``pmean``-reduced over the dp axis. This is the main multi-device path:
     unlike constraint-based GSPMD partitioning, none of the pipeline's
     flat-pixel reshapes or chunked reductions ever cross a shard
     boundary, so no resharding collectives appear inside the step.
@@ -101,9 +101,6 @@ def shard_map_train_step(loss_fn, optimizer, mesh, dp_axis="dp"):
       jitted; params/opt_state replicated, batch dp-sharded.
     """
     import optax
-
-    n_dp = mesh.shape[dp_axis]
-    other_axes = tuple(a for a in mesh.axis_names if a != dp_axis)
 
     def per_shard(params, batch):
         loss, grads = jax.value_and_grad(loss_fn)(params, batch)
@@ -130,5 +127,4 @@ def shard_map_train_step(loss_fn, optimizer, mesh, dp_axis="dp"):
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss
 
-    del other_axes
     return jax.jit(step)

@@ -2,10 +2,10 @@
 
 The reference's analog is viewport tiling into <= 2048^2 passes on one
 GPU (csrc/torch/torch_rasterize.cpp:98-124); here the tiles are *row
-bands on different chips* under `jax.shard_map`:
+bands on different devices* under `jax.shard_map`:
 
 * Every device holds the full (replicated) geometry and runs the FULL
-  single-device pipeline — including the Pallas kernels — on its own
+  single-device pipeline — including the coverage kernel — on its own
   H-band, using the ops' `viewport=(y0, full_height)` extension. Band
   pixels are bit-identical to the same rows of a single-device render.
 * rasterize / interpolate / texture are pixel-local, so they shard for
@@ -21,7 +21,7 @@ bands on different chips* under `jax.shard_map`:
   over the sp axis (shard_map AD inserts this for replicated inputs).
 
 Collectives: 2 x 1-row ppermute forward, 2 reversed in backward — a
-few KB over ICI per step, against megabytes of band pixels kept local.
+few KB per step, against megabytes of band pixels kept local.
 """
 
 import functools
@@ -194,7 +194,7 @@ _aa_boundary_prim.defvjp(_aa_boundary_prim_fwd, _aa_boundary_prim_bwd)
 # ---------------------------------------------------------------------------
 
 def antialias_sp(color, rast, pos, tri, axis_name, full_height,
-                 topology_hash=None, pos_gradient_boost=1.0, impl="auto"):
+                 topology_hash=None, pos_gradient_boost=1.0):
     """Antialias a row band inside `shard_map` (sharded over axis_name).
 
     color/rast: [B, Hband, W, *] local band; pos/tri replicated. The
@@ -216,7 +216,7 @@ def antialias_sp(color, rast, pos, tri, axis_name, full_height,
         topology_hash = TopologyHashWrapper(op_table)
 
     out = antialias(color, rast, pos, tri, topology_hash=topology_hash,
-                    pos_gradient_boost=pos_gradient_boost, impl=impl,
+                    pos_gradient_boost=pos_gradient_boost,
                     viewport=(y0, full_height))
     if n == 1:
         return out

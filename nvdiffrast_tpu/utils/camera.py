@@ -5,8 +5,14 @@ GL-style perspective projection, row-vector-on-the-right 4x4 matrices,
 clip-space positions produced as ``(M @ p)`` with p a column [x,y,z,1].
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+# Float32 products name their precision: on a GPU the default may run
+# them in TF32 (about 10 mantissa bits), ~1 px of clip-space error at
+# 2048^2.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def projection(x=0.1, n=1.0, f=50.0):
@@ -73,7 +79,7 @@ def transform_pos(mtx, pos):
     pos = jnp.asarray(pos, jnp.float32)
     posw = jnp.concatenate([pos, jnp.ones_like(pos[:, :1])], axis=1)
     mtx = jnp.asarray(mtx, jnp.float32)
-    return (posw @ mtx.T)[None]
+    return jnp.matmul(posw, mtx.T, precision=HIGHEST)[None]
 
 
 # Quaternion helpers used by pose fitting (re-derivation of
@@ -122,7 +128,7 @@ def q_scale_small(q, scale, rng=None):
 def q_mul(p, q):
     s1, v1 = p[0], p[1:]
     s2, v2 = q[0], q[1:]
-    s = s1 * s2 - jnp.dot(v1, v2)
+    s = s1 * s2 - jnp.dot(v1, v2, precision=HIGHEST)
     v = s1 * v2 + s2 * v1 + jnp.cross(v1, v2)
     return jnp.concatenate([s[None], v])
 

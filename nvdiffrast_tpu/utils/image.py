@@ -1,5 +1,8 @@
 """Image helpers: bilinear 2x downsample, PSNR, save."""
 
+import struct
+import zlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ def bilinear_downsample(x, steps=1):
             padding=[(1, 1), (1, 1)],
             dimension_numbers=("NHWC", "HWIO", "NHWC"),
             feature_group_count=C,
+            precision=jax.lax.Precision.HIGHEST,
         )
     return x
 
@@ -32,27 +36,27 @@ def psnr(a, b, peak=1.0):
 
 
 def save_image(fn, x):
-    from PIL import Image
-
+    """Write an [H, W] or [H, W, 1|3|4] float image in [0, 1] as an
+    8-bit PNG, with the standard library only (zlib + struct)."""
     x = np.asarray(x)
-    x = np.rint(x * 255.0)
-    x = np.clip(x, 0, 255).astype(np.uint8)
-    Image.fromarray(x).save(fn)
+    x = np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)
+    if x.ndim == 2:
+        x = x[..., None]
+    h, w, c = x.shape
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+    # Each scanline starts with filter type 0 (none).
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), x.reshape(h, w * c)],
+                         axis=1).tobytes()
 
+    def chunk(tag, data):
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
 
-def display_image(x, title=None):
-    """Show an image interactively (reference: samples/torch/util.py).
-
-    Uses PIL's viewer when a display is available; silently no-ops in
-    headless environments (the common case on TPU pods).
-    """
-    try:
-        from PIL import Image
-
-        x = np.asarray(x)
-        x = np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)
-        img = Image.fromarray(x)
-        img.show(title=title)
-        return True
-    except Exception:
-        return False
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                        0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw))
+           + chunk(b"IEND", b""))
+    with open(fn, "wb") as f:
+        f.write(png)

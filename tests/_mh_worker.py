@@ -6,12 +6,13 @@ virtual devices), exercising the real multi-host code paths:
   * multihost.initialize() with an explicit coordinator — BEFORE any
     backend-initializing JAX call (the regression the old
     jax.process_count() guard caused).
-  * pod_mesh(): global (hosts=2, local=4) -> dp=2 over DCN, sp=4.
+  * pod_mesh(): global (processes=2, local=4) -> dp=2 across
+    processes, sp=4 within each.
   * local_batch_slice(): this process's shard of the global batch.
   * shard_map_train_step(): 2 SGD steps of the full
     rasterize+interpolate+antialias pipeline, grads pmean'd over dp.
   * make_sp_render(): rowband spatial parallelism incl. the AA halo
-    ppermutes, on the sp (intra-host / ICI) axis of the global mesh.
+    ppermutes, on the sp (within-process) axis of the global mesh.
 
 Results are written as JSON for the parent test to cross-check against
 a single-process run of the identical global computation.

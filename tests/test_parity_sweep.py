@@ -1,13 +1,12 @@
-"""Pallas <-> XLA parity sweep + golden-image regression.
+"""Coverage-kernel <-> XLA parity sweep + golden-image regression.
 
 Randomized scenes (near-plane crossers, degenerates, batches, range
-mode, peeling) at sizes that cross the kernel's tile boundaries
-(64-row bands, 1024-col tiles, multi-chunk record streams), checking:
+mode, peeling) at sizes that cross the kernel's pixel tiles, checking:
 
-* fused rasterizer (interpret) == XLA path: bit-identical ID buffers,
-  float-tolerance barys/derivatives;
-* the scalar-prefetch remap chunk path == the dense chunk path (the
-  remap engages only when nc > 1, i.e. enough subtriangle chunks);
+* binned coverage kernel (interpret) == XLA path: bit-identical ID
+  buffers except at genuine z-fights, float-tolerance barys/derivatives;
+* other tile sizes (other CSR layouts of the same records) == the
+  default;
 * committed golden renders of the sample workloads (tests/golden/*.npz)
   to catch any regression in the full 4-op pipeline.
 
@@ -47,7 +46,7 @@ def _random_scene(seed, B=1, V=64, T=48, near_crossers=True,
 def _assert_ids_match_mod_zfights(r_x, r_p, max_frac=2e-4):
     """ID buffers equal except where two triangles genuinely intersect
     (equal depths to float tolerance): there the winner is a true tie
-    and the two paths' different merge orders may round differently.
+    and the two routes' different merge orders may round differently.
     Non-tied pixels must agree exactly."""
     ix = np.asarray(r_x[..., 3])
     ip = np.asarray(r_p[..., 3])
@@ -63,15 +62,15 @@ def _assert_ids_match_mod_zfights(r_x, r_p, max_frac=2e-4):
 
 
 @pytest.mark.parametrize("seed,res,B", [
-    (0, (96, 1152), 1),   # crosses the 1024-col tile split
+    (0, (40, 300), 1),    # wide: many tile columns, partial last tile
     (1, (67, 130), 2),    # odd sizes, batch
-    (2, (130, 96), 1),    # >2 rowbands
+    (2, (130, 96), 1),    # tall: several tile rows
     (3, (48, 64), 3),     # batch of 3
 ])
 def test_rasterize_parity_sweep(seed, res, B):
     pos, tri = _random_scene(seed, B=B)
     r_x, db_x = dr.rasterize(None, pos, tri, res, impl="xla")
-    r_p, db_p = dr.rasterize(None, pos, tri, res, impl="pallas_interpret")
+    r_p, db_p = dr.rasterize(None, pos, tri, res, impl="triton_interpret")
     same = _assert_ids_match_mod_zfights(r_x, r_p)
     # Adversarial random geometry (near-plane crossers -> huge screen
     # extents) stresses bary precision; coverage is the bitwise part.
@@ -81,12 +80,20 @@ def test_rasterize_parity_sweep(seed, res, B):
                                np.asarray(db_p)[same], atol=1e-3)
 
 
-def test_rasterize_parity_many_tris():
-    """Multi-chunk record stream (S > chunk) with remap engaged, plus a
-    comparison against the big-mesh CSR segment path (forced by
-    shrinking the remap SMEM budget)."""
-    from nvdiffrast_tpu.ops import rasterize_pallas as rp
+def _kernel_ids(pos, tri, res, tile):
+    """Kernel id buffer (+1, 0 empty) for another pixel-tile size."""
+    from nvdiffrast_tpu.ops.coverage_kernel import coverage_binned
 
+    ranges = jnp.broadcast_to(jnp.array([[0, tri.shape[0]]], jnp.int32),
+                              (pos.shape[0], 2))
+    idbuf, zbuf = coverage_binned(pos, tri, res, ranges, interpret=True,
+                                  tile=tile)
+    return np.asarray(idbuf) + 1, np.asarray(zbuf)
+
+
+def test_rasterize_parity_many_tris():
+    """A record stream far longer than one group per tile, and the
+    same coverage from a different tile size (another CSR layout)."""
     pos_idx, vtxp, _, _ = primitives.uv_sphere(24, 48)  # ~2.2k tris
     tri = jnp.asarray(pos_idx)
     posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
@@ -95,40 +102,25 @@ def test_rasterize_parity_many_tris():
 
     res = (96, 128)
     r_x, _ = dr.rasterize(None, pos, tri, res, impl="xla")
-    r_p, _ = dr.rasterize(None, pos, tri, res, impl="pallas_interpret")
+    r_p, _ = dr.rasterize(None, pos, tri, res, impl="triton_interpret")
     np.testing.assert_array_equal(np.asarray(r_x[..., 3]),
                                   np.asarray(r_p[..., 3]))
-
-    # Force the CSR path by shrinking the remap SMEM budget. The CSR
-    # sweep visits records in a different order (per-tile segments),
-    # so only genuine z-fights may differ.
-    orig = rp._REMAP_MAX_ENTRIES
-    try:
-        rp._REMAP_MAX_ENTRIES = 0
-        r_c, db_c = dr.rasterize(None, pos, tri, res,
-                                 impl="pallas_interpret")
-    finally:
-        rp._REMAP_MAX_ENTRIES = orig
-    same = _assert_ids_match_mod_zfights(r_p, r_c)
-    np.testing.assert_allclose(np.asarray(r_p)[same], np.asarray(r_c)[same],
-                               atol=1e-6)
+    ids16, _ = _kernel_ids(pos, tri, res, (16, 16))
+    np.testing.assert_array_equal(ids16, np.asarray(r_p[..., 3]))
 
 
 def test_rasterize_csr_batch():
-    """CSR path with a minibatch (vmapped layout + per-image scalar
-    tables) must match the remap path mod z-fights."""
-    from nvdiffrast_tpu.ops import rasterize_pallas as rp
-
+    """Minibatch (vmapped layout, per-image segment tables) with
+    overlapping random triangles: kernel == XLA mod z-fights, and
+    16x64 tiles == default tiles."""
     pos, tri = _random_scene(11, B=2, T=400)
     res = (96, 128)
-    r_p, _ = dr.rasterize(None, pos, tri, res, impl="pallas_interpret")
-    orig = rp._REMAP_MAX_ENTRIES
-    try:
-        rp._REMAP_MAX_ENTRIES = 0
-        r_c, _ = dr.rasterize(None, pos, tri, res, impl="pallas_interpret")
-    finally:
-        rp._REMAP_MAX_ENTRIES = orig
-    _assert_ids_match_mod_zfights(r_p, r_c)
+    r_x, _ = dr.rasterize(None, pos, tri, res, impl="xla")
+    r_p, _ = dr.rasterize(None, pos, tri, res, impl="triton_interpret")
+    _assert_ids_match_mod_zfights(r_x, r_p)
+    ids, z = _kernel_ids(pos, tri, res, (16, 64))
+    r_t = np.stack([np.zeros_like(z), np.zeros_like(z), z, ids], -1)
+    _assert_ids_match_mod_zfights(np.asarray(r_p), r_t)
 
 
 def _sliver_scene(seed, T=600, scale=3.0, half_len=2.0, width_px=0.05,
@@ -166,36 +158,28 @@ def _sliver_scene(seed, T=600, scale=3.0, half_len=2.0, width_px=0.05,
 def test_csr_sliver_exact_ids(seed):
     """Exact-id CSR invariant on a tie-free sliver-heavy scene.
 
-    Binning soundness regression (round-3 on-chip finding): a sliver's
-    f32-coefficient coverage polytope can extend ~1 px outside its
-    projected AABB, so without the _coverage_slop expansion the CSR
-    (and remap group-AABB) candidate tests drop pixels the kernel
-    arithmetic covers. No z-fight escape hatch here: depths are
-    distinct constants, all three paths must agree bitwise.
+    Binning soundness regression: a sliver's f32-coefficient coverage
+    polytope can extend ~1 px outside its projected AABB, so without
+    the binning.coverage_slop expansion the CSR segments and group-AABB
+    tests drop pixels the kernel arithmetic covers. No z-fight escape
+    hatch here: depths are distinct constants, the XLA scan and the
+    kernel at two tile sizes must agree bitwise.
     """
-    from nvdiffrast_tpu.ops import rasterize_pallas as rp
-
     pos, tri = _sliver_scene(seed)
-    res = (192, 256)
+    res = (96, 128)
     r_x, _ = dr.rasterize(None, pos, tri, res, impl="xla")
-    r_p, _ = dr.rasterize(None, pos, tri, res, impl="pallas_interpret")
-    orig = rp._REMAP_MAX_ENTRIES
-    try:
-        rp._REMAP_MAX_ENTRIES = 0
-        r_c, _ = dr.rasterize(None, pos, tri, res, impl="pallas_interpret")
-    finally:
-        rp._REMAP_MAX_ENTRIES = orig
+    r_p, _ = dr.rasterize(None, pos, tri, res, impl="triton_interpret")
     ids_x = np.asarray(r_x[..., 3])
     assert (ids_x > 0).sum() > 50, "scene covers too little to test"
     np.testing.assert_array_equal(ids_x, np.asarray(r_p[..., 3]))
-    np.testing.assert_array_equal(ids_x, np.asarray(r_c[..., 3]))
+    np.testing.assert_array_equal(ids_x, _kernel_ids(pos, tri, res,
+                                                     (16, 16))[0])
 
 
-# Triangles found by benchmarks/find_escapees.py: vectorized-f32
-# emulation of the kernel's exact record-coefficient + affine-eval
-# arithmetic, hunting for triangles whose f32 coverage polytope claims
-# a pixel center OUTSIDE the projected vertex AABB + 0.5 px binning
-# pad at 256x256. Each row is one triangle's
+# Triangles found by a vectorized-f32 emulation of the kernel's exact
+# record-coefficient + affine-eval arithmetic, hunting for triangles
+# whose f32 coverage polytope claims a pixel center OUTSIDE the
+# projected vertex AABB + 0.5 px binning pad at 256x256. Each row is one triangle's
 # [x0,y0,z0,w0, x1,y1,z1,w1, x2,y2,z2,w2] clip coords, verbatim
 # (repr round-trips float32 exactly).
 #
@@ -246,16 +230,14 @@ _ESCAPEE_VERTS = [
 
 def test_csr_escapee_exact_ids():
     """Known binning-escape triangles must render identically on every
-    path (round-3 on-chip CSR 1-pixel divergence regression).
+    route (CSR 1-pixel divergence regression).
 
     These triangles' f32 coverage polytopes provably reach outside
     their padded screen AABBs, so any binning that ignores the
-    coefficient-rounding slop (_coverage_slop) drops the escaped pixel
-    on the strictly-binned CSR path. Depths are remapped to distinct
-    per-triangle constants: zero z-fights, bitwise equality required.
+    coefficient-rounding slop (binning.coverage_slop) drops the escaped
+    pixel. Depths are remapped to distinct per-triangle constants: zero
+    z-fights, bitwise equality required.
     """
-    from nvdiffrast_tpu.ops import rasterize_pallas as rp
-
     v = np.asarray(_ESCAPEE_VERTS, np.float32).reshape(-1, 3, 4)
     T = v.shape[0]
     # Distinct per-triangle depth planes (z/w constant per triangle,
@@ -268,20 +250,15 @@ def test_csr_escapee_exact_ids():
 
     res = (256, 256)
     r_x, _ = dr.rasterize(None, pos, tri, res, impl="xla")
-    r_p, _ = dr.rasterize(None, pos, tri, res, impl="pallas_interpret")
-    orig = rp._REMAP_MAX_ENTRIES
-    try:
-        rp._REMAP_MAX_ENTRIES = 0
-        r_c, _ = dr.rasterize(None, pos, tri, res, impl="pallas_interpret")
-    finally:
-        rp._REMAP_MAX_ENTRIES = orig
+    r_p, _ = dr.rasterize(None, pos, tri, res, impl="triton_interpret")
     ids_x = np.asarray(r_x[..., 3])
     # Each escapee covers ~1 px; a few may overlap another's pixel.
     # Under the correctly-rounded construction most legacy slivers no
     # longer cover anything; at least the re-confirmed escapee must.
     assert (ids_x > 0).sum() >= 1, "no sliver covers any pixel"
     np.testing.assert_array_equal(ids_x, np.asarray(r_p[..., 3]))
-    np.testing.assert_array_equal(ids_x, np.asarray(r_c[..., 3]))
+    np.testing.assert_array_equal(ids_x, _kernel_ids(pos, tri, res,
+                                                     (16, 16))[0])
 
 
 def test_peeling_parity_random():
@@ -298,13 +275,13 @@ def test_peeling_parity_random():
         pos_np[:, 3 * t:3 * t + 3, 2] = z_planes[t]
     pos, tri = jnp.asarray(pos_np), jnp.asarray(tri_np)
     outs = {}
-    for impl in ("xla", "pallas_interpret"):
+    for impl in ("xla", "triton_interpret"):
         with dr.DepthPeeler(dr.RasterizeCudaContext(), pos, tri, (67, 96),
                             impl=impl) as peeler:
             layers = [np.asarray(peeler.rasterize_next_layer()[0])
                       for _ in range(3)]
         outs[impl] = layers
-    for a, b in zip(outs["xla"], outs["pallas_interpret"]):
+    for a, b in zip(outs["xla"], outs["triton_interpret"]):
         np.testing.assert_array_equal(a[..., 3], b[..., 3])
         np.testing.assert_allclose(a, b, atol=1e-5)
 

@@ -1,11 +1,9 @@
-"""Parity: fused render_pipeline (interpret mode) vs composed ops.
+"""render_pipeline: the documented op composition, on both coverage
+routes.
 
-The fused pipeline must reproduce
-antialias(interpolate(attr, rast, atri)[0], rast, pos, tri) and its
-gradients. Parity is checked against a composition that uses the SAME
-(Pallas-interpret) rasterizer, where the result is exactly equal; a
-composition with the XLA rasterizer can pick different winners at
-z-fight pixels (tests/test_parity_sweep.py), so it is not used here.
+The binned kernel (interpret mode) and the XLA scan pick the same
+winners on this tie-free sphere, so images agree to float precision and
+gradients to summation order.
 """
 
 import numpy as np
@@ -20,7 +18,7 @@ from nvdiffrast_tpu.ops.antialias import antialias
 from nvdiffrast_tpu.models import primitives
 from nvdiffrast_tpu.utils import camera
 
-IMPL = "pallas_interpret"
+IMPL = "triton_interpret"
 
 
 def _scene(B=1, seed=0, A=3):
@@ -41,10 +39,9 @@ def _scene(B=1, seed=0, A=3):
 
 
 def _composed(pos, tri, attr, res, cidx, boost=1.0):
-    rast, _ = rasterize(None, pos, tri, res, grad_db=False, impl=IMPL)
-    color, _ = interpolate(attr, rast, cidx, impl=IMPL)
-    return antialias(color, rast, pos, tri, pos_gradient_boost=boost,
-                     impl=IMPL)
+    rast, _ = rasterize(None, pos, tri, res, grad_db=False, impl="xla")
+    color, _ = interpolate(attr, rast, cidx)
+    return antialias(color, rast, pos, tri, pos_gradient_boost=boost)
 
 
 @pytest.mark.parametrize("B", [1, 2])
@@ -53,7 +50,7 @@ def test_pipeline_forward_parity(B):
     res = (48, 64)
     ref = _composed(pos, tri, attr, res, cidx)
     out = render_pipeline(pos, tri, attr, res, attr_idx=cidx, impl=IMPL)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-6)
 
 
 @pytest.mark.parametrize("B,boost", [(1, 1.0), (2, 2.5)])
@@ -73,9 +70,9 @@ def test_pipeline_gradient_parity(B, boost):
     gf = jax.grad(loss_fused, argnums=(0, 1))(pos, attr)
     for n, a, b in zip(("g_pos", "g_attr"), gc, gf):
         assert float(jnp.abs(a).sum()) > 0, n
-        # Silhouette position gradients carry 1/dy cancellation, and
-        # the fused path's merged scatter associates adds differently:
-        # a few entries differ by O(10) ULP of the gradient scale.
+        # Silhouette position gradients carry 1/dy cancellation, so
+        # f32 rounding differences of equal math show up at O(10) ULP
+        # of the gradient scale.
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
                                    atol=1e-5, rtol=1e-4, err_msg=n)
 
@@ -99,12 +96,11 @@ def test_pipeline_broadcast_attr():
 
 
 def test_pipeline_matches_explicit_composition():
-    """The `compose` fallback really is the documented op composition."""
+    """render_pipeline is exactly the documented op composition."""
     pos, tri, attr, cidx = _scene(B=1, seed=2)
     res = (48, 64)
     rast, _ = rasterize(None, pos, tri, res, grad_db=False)
     color, _ = interpolate(attr, rast, cidx)
     ref = antialias(color, rast, pos, tri)
-    out = render_pipeline(pos, tri, attr, res, attr_idx=cidx,
-                          impl="compose")
+    out = render_pipeline(pos, tri, attr, res, attr_idx=cidx)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))

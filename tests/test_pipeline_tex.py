@@ -1,4 +1,5 @@
-"""Parity of the fused textured pipeline against the composed ops."""
+"""render_pipeline_textured against the composed ops, on both coverage
+routes (the binned kernel in interpret mode, the XLA scan)."""
 
 import numpy as np
 import jax
@@ -23,11 +24,10 @@ def _scene(seed=0, B=2, V=50, T=40):
 def _composed(pos, tri, uv, tex, res, bm, fm, impl="xla"):
     rast, rast_db = dr.rasterize(None, pos, tri, res, grad_db=True,
                                  impl=impl)
-    uvp, uv_da = dr.interpolate(uv, rast, tri, rast_db, diff_attrs="all",
-                                impl=impl)
-    img = dr.texture(tex, uvp, uv_da=uv_da, filter_mode=fm,
-                     boundary_mode=bm, impl=impl)
-    return dr.antialias(img, rast, pos, tri, impl=impl)
+    uvp, uv_da = dr.interpolate(uv, rast, tri, rast_db, diff_attrs="all")
+    img = dr.texture(tex, uvp, uv_da=uv_da if "mipmap" in fm else None,
+                     filter_mode=fm, boundary_mode=bm)
+    return dr.antialias(img, rast, pos, tri)
 
 
 def test_textured_pipeline_forward_parity():
@@ -37,7 +37,7 @@ def test_textured_pipeline_forward_parity():
         a = _composed(pos, tri, uv, tex, res, bm, "linear-mipmap-linear")
         b = render_pipeline_textured(pos, tri, uv, tex, res,
                                      boundary_mode=bm,
-                                     impl="pallas_interpret")
+                                     impl="triton_interpret")
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
                                    atol=1e-5, rtol=1e-5)
 
@@ -47,24 +47,19 @@ def test_textured_pipeline_gradient_parity():
     res = (48, 64)
 
     def loss_c(p, u, t):
-        o = _composed(p, tri, u, t, res, "wrap", "linear-mipmap-linear",
-                      impl="pallas_interpret")
+        o = _composed(p, tri, u, t, res, "wrap", "linear-mipmap-linear")
         return jnp.sum(o ** 2 + 0.1 * o)
 
     def loss_f(p, u, t):
         o = render_pipeline_textured(p, tri, u, t, res,
-                                     impl="pallas_interpret")
+                                     impl="triton_interpret")
         return jnp.sum(o ** 2 + 0.1 * o)
 
     gc = jax.grad(loss_c, argnums=(0, 1, 2))(pos, uv, tex)
     gf = jax.grad(loss_f, argnums=(0, 1, 2))(pos, uv, tex)
-    # The mip path runs the slim pipeline-level backward (one fused
-    # interp+raster pass + one hi/lo MXU scatter) — same formulas as
-    # the composed ops but a different f32 rounding path (fma
-    # contraction + bf16 hi/lo accumulation), amplified at
-    # ill-conditioned pixels by the 1/(at + 1e-6) pole. Both sides sit
-    # ~2e-6 of scale from the f64 ground truth (see
-    # test_interp_raster_bwd_matches_f64); bound the disagreement at
+    # Same formulas on both routes (coverage differs only in how the
+    # winners were found); f32 rounding of the backward, amplified at
+    # ill-conditioned pixels by the 1/(at + 1e-6) pole, is bounded at
     # 5e-5 of scale.
     for n, a, b in zip(("g_pos", "g_uv", "g_tex"), gc, gf):
         scale = float(jnp.max(jnp.abs(a)))
@@ -88,29 +83,25 @@ def test_textured_pipeline_cube():
 
     def loss_c(p, r, t):
         rast, rast_db = dr.rasterize(None, p, tri, res, grad_db=True,
-                                     impl="pallas_interpret")
+                                     impl="triton_interpret")
         uvp, uv_da = dr.interpolate(r, rast, tri, rast_db,
-                                    diff_attrs="all",
-                                    impl="pallas_interpret")
+                                    diff_attrs="all")
         img = dr.texture(t, uvp, uv_da=uv_da,
                          filter_mode="linear-mipmap-linear",
-                         boundary_mode="cube", impl="pallas_interpret")
-        img = dr.antialias(img, rast, p, tri, impl="pallas_interpret")
+                         boundary_mode="cube")
+        img = dr.antialias(img, rast, p, tri)
         return jnp.sum(img ** 2 + 0.1 * img)
 
     def loss_f(p, r, t):
         o = render_pipeline_textured(p, tri, r, t, res,
                                      boundary_mode="cube",
-                                     impl="pallas_interpret")
+                                     impl="triton_interpret")
         return jnp.sum(o ** 2 + 0.1 * o)
 
     np.testing.assert_allclose(float(loss_f(pos, refl, tex)),
                                float(loss_c(pos, refl, tex)), rtol=1e-5)
     gc = jax.grad(loss_c, argnums=(0, 1, 2))(pos, refl, tex)
     gf = jax.grad(loss_f, argnums=(0, 1, 2))(pos, refl, tex)
-    # Cube glue computes st_da via jvp over columns instead of a
-    # stacked [N, 3] array, so rounding differs at f32 associativity
-    # level (observed ~6e-8 relative) — not bit-identical like 2D.
     for n, a, b in zip(("g_pos", "g_refl", "g_tex"), gc, gf):
         assert float(jnp.abs(a).sum()) > 0, n
         scale = float(jnp.max(jnp.abs(a)))
@@ -126,15 +117,14 @@ def test_textured_pipeline_minibatch_tex_and_boost():
     res = (40, 48)
 
     def loss_c(p):
-        o = _composed(p, tri, uv, tex, res, "clamp", "linear",
-                      impl="pallas_interpret")
+        o = _composed(p, tri, uv, tex, res, "clamp", "linear")
         return jnp.sum(o ** 2)
 
     def loss_f(p):
         o = render_pipeline_textured(p, tri, uv, tex, res,
                                      boundary_mode="clamp",
                                      filter_mode="linear",
-                                     impl="pallas_interpret")
+                                     impl="triton_interpret")
         return jnp.sum(o ** 2)
 
     np.testing.assert_allclose(float(loss_f(pos)), float(loss_c(pos)),
@@ -145,87 +135,38 @@ def test_textured_pipeline_minibatch_tex_and_boost():
                                atol=1e-6, rtol=1e-6)
 
 
-def test_interp_raster_bwd_kernel_columns():
-    """The fused interp+raster backward pass emits the same per-pixel
-    gradient columns as the composed-op XLA ingredients.
+def test_raster_bwd_matches_fd():
+    """Position gradient of the barycentric channels (the rasterize
+    backward rule, rasterize.cu:119-273) against central differences:
+    small moves keep coverage fixed on this tie-free scene, so the
+    loss is smooth in pos."""
+    pos, tri, _, _ = _scene(seed=7, B=1)
+    res = (48, 64)
+    w = jnp.asarray(np.random.RandomState(11).randn(1, 48, 64, 4)
+                    .astype(np.float32))
 
-    Exact for the masked (gu, gv) rows; the raster/da columns follow a
-    different f32 rounding path (fma contraction differs per fusion
-    context) amplified by the 1/(at + 1e-6) pole, so they are bounded
-    at 2e-5 of scale — an f64-reference run puts BOTH sides ~2e-6 of
-    scale from ground truth (benchmarks round-5 notes)."""
-    from nvdiffrast_tpu.ops import coord
-    from nvdiffrast_tpu.ops import pipeline_tex_pallas as ptp
-    from nvdiffrast_tpu.ops.pipeline import _attr_table
-    from nvdiffrast_tpu.ops.antialias import _build_tables
-    from nvdiffrast_tpu.ops.rasterize import (_raster_grad_pixel_cols,
-                                              rasterize_flat)
-    from nvdiffrast_tpu.ops.gather import table_take
-    from nvdiffrast_tpu.ops.topology import build_opposite_table
+    def loss(p):
+        rast, rast_db = dr.rasterize(None, p, tri, res, grad_db=True)
+        return (jnp.sum(rast[..., :2] * w[..., :2])
+                + 1e-3 * jnp.sum(rast_db * w))
 
-    pos, tri, uv, _ = _scene(seed=7)
-    B, T = pos.shape[0], tri.shape[0]
-    H, W = 48, 64
-    N = B * H * W
-    rng = np.random.RandomState(11)
-
-    u, v, zw, idf, d0, d1, d2, d3 = rasterize_flat(
-        pos, tri, (H, W), "pallas_interpret", True)
-    gu = jnp.asarray(rng.randn(N).astype(np.float32))
-    gv = jnp.asarray(rng.randn(N).astype(np.float32))
-    gda4 = jnp.asarray(rng.randn(4, N).astype(np.float32))
-    db4 = jnp.stack([d0, d1, d2, d3])
-
-    op_table = build_opposite_table(tri)
-    atbl, _ = _attr_table(uv, tri, True, B, T)
-    _, vtbl, R, _ = _build_tables(pos, tri, op_table, True, H, W)
-    pix = jnp.arange(N, dtype=jnp.int32)
-    rofs = (pix // (H * W)) * T
-    xs, xo, ys, yo = coord.pixel_scale_offset(H, W)
-    fxc = (pix % W).astype(jnp.float32) * xs + xo
-    fyc = ((pix // W) % H).astype(jnp.float32) * ys + yo
-
-    out15 = ptp.interp_raster_bwd_tex(
-        atbl, vtbl, idf, u, v, gu, gv, gda4, db4, rofs, fxc, fyc, T,
-        2.0 / W, 2.0 / H, interpret=True)
-
-    # Composed-op reference: interpolate bwd (XLA formulas) chained
-    # into the rasterize bwd columns.
-    idbuf = coord.float_to_triidx(idf) - 1
-    valid = (idbuf >= 0) & (idbuf < T)
-    rid = jnp.where(valid, idbuf + rofs, R)
-    g6 = table_take(atbl, rid)
-    dsd = [g6[0] - g6[4], g6[1] - g6[5], g6[2] - g6[4], g6[3] - g6[5]]
-    gyu = jnp.where(valid, gu, 0.0)
-    gyv = jnp.where(valid, gv, 0.0)
-    gb0 = gyu * dsd[0] + gyv * dsd[1]
-    gb1 = gyu * dsd[2] + gyv * dsd[3]
-    dm = [jnp.where(valid, c, 0.0) for c in (d0, d1, d2, d3)]
-    gdb = [jnp.zeros_like(gb0) for _ in range(4)]
-    cda = []
-    for j in range(2):
-        gdax, gday = gda4[2 * j], gda4[2 * j + 1]
-        cda.append(jnp.where(valid, dm[0] * gdax + dm[1] * gday, 0.0))
-        cda.append(jnp.where(valid, dm[2] * gdax + dm[3] * gday, 0.0))
-        gdb[0] += gdax * dsd[2 * 0 + j]
-        gdb[1] += gday * dsd[2 * 0 + j]
-        gdb[2] += gdax * dsd[2 * 1 + j]
-        gdb[3] += gday * dsd[2 * 1 + j]
-    gdb = [jnp.where(valid, c, 0.0) for c in gdb]
-    g9, _, _, _ = _raster_grad_pixel_cols(
-        pos, tri, idf, gb0, gb1, tuple(gdb), (H, W), B, True)
-
-    np.testing.assert_array_equal(np.asarray(out15[0]), np.asarray(gyu))
-    np.testing.assert_array_equal(np.asarray(out15[1]), np.asarray(gyv))
-    for k in range(9):
-        a = np.asarray(out15[2 + k])
-        b = np.asarray(g9[k])
-        s = max(np.abs(b).max(), 1e-6)
-        assert np.abs(a - b).max() <= 2e-5 * s, ("pos", k)
-    # da attr terms: rows 11-14 = (c0_u, c0_v, c1_u, c1_v).
-    order = [cda[0], cda[2], cda[1], cda[3]]
-    for k in range(4):
-        a = np.asarray(out15[11 + k])
-        b = np.asarray(order[k])
-        s = max(np.abs(b).max(), 1e-6)
-        assert np.abs(a - b).max() <= 1e-6 * s, ("cda", k)
+    g = np.asarray(jax.grad(loss)(pos))
+    ids = np.asarray(dr.rasterize(None, pos, tri, res)[0][..., 3])
+    rng = np.random.RandomState(5)
+    checked = 0
+    for _ in range(40):
+        v, c = rng.randint(pos.shape[1]), rng.choice([0, 1, 3])
+        if abs(g[0, v, c]) < 1e-2:
+            continue
+        eps = 1e-4
+        pp = pos.at[0, v, c].add(eps)
+        pm = pos.at[0, v, c].add(-eps)
+        ip = np.asarray(dr.rasterize(None, pp, tri, res)[0][..., 3])
+        im = np.asarray(dr.rasterize(None, pm, tri, res)[0][..., 3])
+        if (ip != ids).any() or (im != ids).any():
+            continue  # coverage changed: not a smooth neighborhood
+        fd = (float(loss(pp)) - float(loss(pm))) / (2 * eps)
+        np.testing.assert_allclose(g[0, v, c], fd, rtol=3e-2,
+                                   atol=3e-2 * np.abs(g).max())
+        checked += 1
+    assert checked >= 5

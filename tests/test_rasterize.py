@@ -5,7 +5,7 @@ import pytest
 
 import nvdiffrast_tpu as dr
 from nvdiffrast_tpu.ops import coord
-from nvdiffrast_tpu.ops.rasterize import _near_clip_subtris
+from nvdiffrast_tpu.ops.binning import near_clip_cols
 
 
 def _tri_setup():
@@ -108,29 +108,41 @@ def test_range_mode():
     assert (ids[0] == 1).any() and (ids[1] == 2).any()
 
 
+def _near_clip(v):
+    """near_clip_cols on [1, 3, 4] vertices -> (sub [2, 3, 3] of (x, y, w),
+    valid [2])."""
+    x, y, w = (tuple(v[:, j, c] for j in range(3)) for c in (0, 1, 3))
+    sx, sy, sw, valid = near_clip_cols(x, y, w)
+    sub = np.stack([np.stack([np.stack([np.asarray(sx[s][j][0]),
+                                        np.asarray(sy[s][j][0]),
+                                        np.asarray(sw[s][j][0])])
+                              for j in range(3)]) for s in range(2)])
+    return sub, [bool(valid[s][0]) for s in range(2)]
+
+
 def test_near_clip_subtris():
     # Triangle fully in front: one valid slot.
     v = jnp.array([[[0., 0., 0., 1.], [1., 0., 0., 1.], [0., 1., 0., 1.]]])
-    sub, valid = _near_clip_subtris(v)
-    assert bool(valid[0, 0]) and not bool(valid[0, 1])
-    np.testing.assert_allclose(np.asarray(sub[0, 0]), np.asarray(v[0]))
+    sub, valid = _near_clip(v)
+    assert valid[0] and not valid[1]
+    np.testing.assert_allclose(sub[0], np.asarray(v[0][:, [0, 1, 3]]))
 
     # One vertex behind (two inside): quad -> 2 subtriangles.
     v1 = jnp.array([[[0., 0., 0., 1.], [1., 0., 0., 1.], [0., 1., 0., -1.]]])
-    sub, valid = _near_clip_subtris(v1)
-    assert bool(valid[0, 0]) and bool(valid[0, 1])
-    assert np.all(np.asarray(sub[0, :, :, 3]) >= 0)
+    sub, valid = _near_clip(v1)
+    assert valid[0] and valid[1]
+    assert np.all(sub[:, :, 2] >= 0)
 
     # Two vertices behind (one inside): single clipped subtriangle.
     v2 = jnp.array([[[0., 0., 0., 1.], [1., 0., 0., -1.], [0., 1., 0., -1.]]])
-    sub, valid = _near_clip_subtris(v2)
-    assert bool(valid[0, 0]) and not bool(valid[0, 1])
-    assert np.all(np.asarray(sub[0, 0, :, 3]) >= 0)
+    sub, valid = _near_clip(v2)
+    assert valid[0] and not valid[1]
+    assert np.all(sub[0, :, 2] >= 0)
 
     # All behind: no valid slots.
     v3 = jnp.array([[[0., 0., 0., -1.], [1., 0., 0., -1.], [0., 1., 0., -1.]]])
-    sub, valid = _near_clip_subtris(v3)
-    assert not bool(valid[0, 0]) and not bool(valid[0, 1])
+    sub, valid = _near_clip(v3)
+    assert not valid[0] and not valid[1]
 
 
 def test_grad_matches_finite_difference_interior():

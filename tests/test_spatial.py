@@ -54,7 +54,8 @@ def test_viewport_band_bit_identical():
 
 
 def test_viewport_band_pallas_interpret():
-    """The fused kernel's viewport path (SMEM y0) matches the XLA path."""
+    """The binned kernel's viewport path (traced y0) matches the XLA
+    path."""
     pos, tri, col, cidx = _scene(seed=1)
     H, W = 64, 128
     hb = 32
@@ -62,10 +63,8 @@ def test_viewport_band_pallas_interpret():
         bx, _ = rasterize(None, pos, tri, (hb, W), viewport=(b * hb, H),
                           impl="xla")
         bp, _ = rasterize(None, pos, tri, (hb, W), viewport=(b * hb, H),
-                          impl="pallas_interpret")
-        # IDs (coverage) bit-identical; barys to float tolerance (the
-        # fused kernel shades from affine accumulators, the XLA path
-        # from gathered vertices — different but equivalent f32 math).
+                          impl="triton_interpret")
+        # IDs (coverage) bit-identical; shading is the same XLA code.
         np.testing.assert_array_equal(np.asarray(bx[..., 3]),
                                       np.asarray(bp[..., 3]))
         np.testing.assert_allclose(np.asarray(bx), np.asarray(bp),

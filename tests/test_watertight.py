@@ -2,7 +2,7 @@
 
 The rasterizer normalizes winding by the sign of the homogeneous area
 form and applies an exclusive tie rule for pixels exactly on an edge
-(rasterize._area_form/_tie_bits). A mesh edge shared by two triangles
+(binning.build_records, rasterize._tie_bits). A mesh edge shared by two triangles
 evaluates to bitwise-opposite edge functions on the two sides, so every
 pixel is claimed by exactly one triangle — the reference achieves the
 same with fixed-point snap + integer edge functions
@@ -152,7 +152,7 @@ def test_winding_invariance():
 
 
 def test_watertight_pallas_xla_identical():
-    """Fused kernel and XLA path produce bit-identical ID buffers on
+    """Binned kernel and XLA path produce bit-identical ID buffers on
     adjacency meshes."""
     rng = np.random.RandomState(5)
     verts2, tri_np, _, _ = _fan(9, rng)
@@ -162,7 +162,7 @@ def test_watertight_pallas_xla_identical():
     tri = jnp.asarray(tri_np)
     for res in [(48, 64), (67, 130)]:
         rx, _ = rasterize(None, pos, tri, res, impl="xla")
-        rp, _ = rasterize(None, pos, tri, res, impl="pallas_interpret")
+        rp, _ = rasterize(None, pos, tri, res, impl="triton_interpret")
         np.testing.assert_array_equal(np.asarray(rx[..., 3]),
                                       np.asarray(rp[..., 3]))
 
@@ -218,7 +218,7 @@ def test_nearclip_shared_edge_watertight(rot90, res):
     Holds because the clipper's canonical rotation always evaluates
     isect(inside_vertex, outside_vertex) in that argument order, so both
     triangles compute a bitwise-identical intersection point
-    (rasterize._near_clip_subtris), and shared-edge coefficients are
+    (binning.near_clip_cols), and shared-edge coefficients are
     exact IEEE negations.
 
     Cross-impl id buffers may differ by ulp-level coverage flips on the
@@ -229,7 +229,7 @@ def test_nearclip_shared_edge_watertight(rot90, res):
     """
     pos, tri = _nearclip_scene(rot90)
 
-    for impl in ("xla", "pallas_interpret"):
+    for impl in ("xla", "triton_interpret"):
         masks = _coverage_per_tri(pos, tri, res, impl=impl)
         total = _assert_watertight(masks)
         # Full-mesh render covers exactly the union.
@@ -254,7 +254,7 @@ def test_nearclip_shared_edge_watertight(rot90, res):
         assert (diff <= edge).all(), "interior pixels differ between impls"
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("impl", ["xla", "triton_interpret"])
 def test_degenerate_triangle_covers_nothing(impl):
     """Exactly-degenerate triangles (duplicate vertex / collinear) must
     shade no pixels, even though f32 noise can leave their area form pD
@@ -262,7 +262,7 @@ def test_degenerate_triangle_covers_nothing(impl):
     rows are exact IEEE negations, so the exclusive tie rule empties
     the coverage set — PROVIDED the winding sign po is one consistent
     value across all record rows (the optimization_barrier in
-    _build_records_cm / _rasterize_fwd_core; without it XLA's per-site
+    binning.build_records, which both routes read; without it XLA's per-site
     FMA contraction of pD can flip po between rows on these triangles,
     turning the record into garbage half-planes). Reference culls
     zero-area triangles after fixed-point snap
@@ -294,7 +294,7 @@ def test_shared_edge_exact_negation():
     with the sign applied last, which is contraction-proof."""
     import jax
 
-    from nvdiffrast_tpu.ops import rasterize_pallas as rp
+    from nvdiffrast_tpu.ops import binning
     from nvdiffrast_tpu.ops.rasterize import _edge_coeffs
 
     rng = np.random.RandomState(3)
@@ -316,7 +316,7 @@ def test_shared_edge_exact_negation():
     x = tuple(tv_a[:, j, 0] for j in range(3))
     y = tuple(tv_a[:, j, 1] for j in range(3))
     w = tuple(tv_a[:, j, 3] for j in range(3))
-    ec = jax.jit(rp._edge_coeffs_cols)(x, y, w)
+    ec = jax.jit(binning.edge_coeffs_cols)(x, y, w)
     et = np.asarray(ea)
     for k in range(3):
         for c in range(3):
